@@ -1,0 +1,64 @@
+"""optimistic_lookup: the paper's §4.2 interpolation search as a CUDA kernel.
+
+Launch wrapper for ``csrc/optimistic_lookup.cu``, which replaces the TPU
+kernel ``optimistic_lookup`` of the JAX package's
+``kernels/optimistic_lookup/kernel.py`` (the design note is in the source).
+The wrapper takes CUDA tensors only and raises on anything else; the plain
+PyTorch version for CPU tensors is ``ref.py``, and ``ops.py`` picks between
+the two by the tensors' device.
+
+``launches`` counts kernel launches: the wrapper adds one where it launches
+its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..build import check, check_tensor, load, stream_arg
+
+launches = {"optimistic_lookup": 0}
+
+_P = ctypes.c_void_p
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load("optimistic_lookup")
+        lib.optimistic_lookup.argtypes = [_P] * 5 + [ctypes.c_int] * 4 + [_P]
+        lib.optimistic_lookup.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def optimistic_lookup(queries: torch.Tensor, keys: torch.Tensor, *,
+                      window: int = 512, max_iters: int = 4):
+    """queries (Q,) uint32; keys (N,) uint32 sorted ascending, N ≥ 1.
+    → (idx (Q,) int32 [-1 if unresolved], found (Q,) bool,
+    iters (Q,) int32)."""
+    dev = queries.device
+    check_tensor(queries, "queries", torch.uint32, dev)
+    check_tensor(keys, "keys", torch.uint32, dev)
+    q, n = queries.shape[0], keys.shape[0]
+    if n == 0 or n >= 2 ** 31:
+        raise ValueError(f"keys must hold 1 to 2³¹-1 entries, not {n}")
+    window = min(window, n)
+    if window < 1 or max_iters < 0:
+        raise ValueError(f"window={window}, max_iters={max_iters}")
+    idx = torch.empty(q, dtype=torch.int32, device=dev)
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    iters = torch.empty(q, dtype=torch.int32, device=dev)
+    if q == 0:
+        return idx, found, iters
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.optimistic_lookup(
+            queries.data_ptr(), keys.data_ptr(), idx.data_ptr(),
+            found.data_ptr(), iters.data_ptr(), q, n, window, max_iters,
+            stream_arg(queries))
+    check(lib, err, "optimistic_lookup launch")
+    launches["optimistic_lookup"] += 1
+    return idx, found, iters
