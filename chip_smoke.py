@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch/CUDA port of Tidehunter's storage path.
+"""Chip check of the PyTorch/CUDA port of Tidehunter: the storage path and
+KV-WAL decode serving of Llama-3-8B.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -12,19 +13,33 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
 1. The card (``nvidia-smi`` name and power limit), PyTorch and CUDA versions,
    and the kernel build: one ``nvcc`` per source, started together.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
-   bit for bit, at the shapes the main path gives it, plus the u32
-   wraparound and budget-exhaustion cases; times from CUDA events (median of
-   30) beside the plain version, the library call where one exists, and the
-   least time the card's memory rate allows for this run's data.
-3. The main path, through the engine's public API with ``device="cuda"``:
+   at the shapes its main path gives it: the storage kernels bit for bit,
+   with the u32 wraparound and budget-exhaustion cases; tide_attention at
+   Llama-3-8B decode shapes in bf16 (2e-2, and 4e-3 absolute) and fp32
+   (2e-5), with a pruned
+   row, a sliding window and two empty rows that must be exactly 0.  Times
+   from CUDA events (median of 30) beside the plain version, the library
+   call where one exists, and the least time the card's memory rate allows
+   for this run's data.
+3. The storage path, through the engine's public API with ``device="cuda"``:
    ``put_many`` of N uniform 32-byte keys (sha256) with 1 KiB values in
    batches of 4096, ``flush``, ``close``, reopen (cells UNLOADED, nothing
    memoized), ``multi_exists`` on 32768 keys (half present) and
    ``multi_get`` on 8192 present keys.  Every answer is checked against
-   what was written, and every launch count is 0 before and above 0 after.
-   Then a second, warm read pass runs under torch.profiler (device time of
-   each kernel and copy) and a third under cProfile (host time).
+   what was written.  Then a second, warm read pass runs under
+   torch.profiler (device time of each kernel and copy) and a third under
+   cProfile (host time).
+4. The serving path: ``ServingEngine`` over full-width Llama-3-8B with
+   random weights from a seeded generator, 8 slots of 2048 positions, 16
+   greedy requests of 16-1024 prompt tokens and 32 new tokens each.  Every
+   request must retire with 32 tokens in the vocabulary, every decode step
+   must launch tide_attention once per layer, and the recycled segments must
+   equal the blocks the requests used.  Then one decode step runs under
+   torch.profiler, and one decode step from one cache goes once through the
+   kernel and once through its plain version: at bf16 over 32 layers, and
+   in fp32 over 4 layers at 2e-4.
 
+Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -48,6 +63,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 rate; the
                                # integer work here never comes near it
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+L2_BYTES = 50 << 20            # H100 L2 cache
 EXISTS_KEYS = 32768
 GET_KEYS = 8192
 BATCH = 4096
@@ -64,17 +81,24 @@ def say(msg: str) -> None:
 
 # ----------------------------------------------------------------- timing
 
-def time_ms(fn, reps: int = 30) -> float:
+def time_ms(fn, reps: int = 30, cold: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` runs, from CUDA events.
     A spin kernel ahead of each start event keeps the card busy while the
-    host enqueues ``fn``, so the events bracket device work only."""
+    host enqueues ``fn``, so the events bracket device work only.  ``cold``
+    overwrites a buffer of four times the L2 cache before each run, so ``fn``
+    finds its inputs in device memory, as a decode step finds each layer's
+    arena after the weights of the layer before have streamed through."""
     import torch
+    flush = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda") \
+        if cold else None
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.fill_(1)
         torch.cuda._sleep(20_000_000)
         start.record()
         fn()
@@ -84,9 +108,10 @@ def time_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -294,6 +319,339 @@ def kernel_phase(seed: int, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------- launch counts
+
+def _launch_counts() -> list[dict]:
+    from repro_torch.kernels.bloom_check import kernel as bk
+    from repro_torch.kernels.optimistic_lookup import kernel as lk
+    from repro_torch.kernels.tide_attention import kernel as tk
+    return [bk.launches, lk.launches, tk.launches]
+
+
+def reset_launches() -> None:
+    for counts in _launch_counts():
+        for name in counts:
+            counts[name] = 0
+
+
+def read_launches() -> dict:
+    return {k: v for counts in _launch_counts() for k, v in counts.items()}
+
+
+def _close(got, want, tol: float) -> float:
+    """max |got - want|, after checking |got - want| <= tol + tol |want|
+    everywhere (torch.testing.assert_close with rtol = atol = tol)."""
+    import torch
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail("non-finite output")
+    d = (g - w).abs()
+    if bool((d > tol + tol * w.abs()).any()):
+        fail(f"outputs differ beyond rtol = atol = {tol}: max |diff| "
+             f"{float(d.max())}")
+    return float(d.max())
+
+
+# ---------------------------------------------------- kernel D: attention
+
+def tide_phase(seed: int, device: str = "cuda") -> dict:
+    """tide_attention at Llama-3-8B decode shapes (B=8 slots, 32 query heads
+    over 8 kv-heads, head_dim 128, blocks of 128, 16 blocks = 2048
+    positions), random permuted tables, lengths 1-2048, row 0 pruned below
+    position 512."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kvwal
+    from repro_torch.kernels.tide_attention import kernel as tk
+    from repro_torch.kernels.tide_attention.ref import (live_mask,
+                                                        tide_attention_ref)
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 4)
+    B, H, KH, d, NB, blk = 8, 32, 8, 128, 16, 128
+    lens = rng.integers(1, NB * blk + 1, B)
+    lens[0] = max(lens[0], 1024)
+    live = np.zeros(B, np.int64)
+    live[0] = 512
+    host = [rng.standard_normal(shape, dtype=np.float32) for shape in
+            ((B, H, d), (B, NB, blk, KH, d), (B, NB, blk, KH, d))]
+    table = np.stack([rng.permutation(NB) for _ in range(B)])
+    ints = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (table, lens, live)]
+    cases = {}
+    # bf16 is held at rtol = atol = 2e-2 (the JAX package's kernel tests)
+    # and, since a typical output here is only ~0.04, at 4e-3 absolute too:
+    # a fault in the bf16 loads or rounding alone would pass the first.
+    for dtype, tol, atol in ((torch.bfloat16, 2e-2, 4e-3),
+                             (torch.float32, 2e-5, 2e-5)):
+        args = [torch.from_numpy(a).to(dev, dtype) for a in host] + ints
+        for window in (0, 300):
+            got = tk.tide_attention(*args, window=window)
+            want = tide_attention_ref(*args, window=window)
+            err = _close(got, want, tol)
+            if err > atol:
+                fail(f"tide_attention {dtype} window={window}: max |diff| "
+                     f"{err} beyond {atol}")
+            cases[f"{dtype}".split(".")[1] + f" window={window}"] = err
+        # Two empty rows beside a live one: seq_len = 0, and every position
+        # below first_live.  Both must be exactly 0.
+        e_args = [a[:3].clone() for a in args[:3]] + [
+            ints[0][:3].clone(),
+            torch.tensor([0, 300, 700], dtype=torch.int32, device=dev),
+            torch.tensor([0, 384, 128], dtype=torch.int32, device=dev)]
+        got = tk.tide_attention(*e_args)
+        if bool(got[:2].any()):
+            fail(f"tide_attention {dtype}: an empty row is not 0")
+        _close(got[2], tide_attention_ref(*e_args)[2], tol)
+
+    args = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in host] + ints
+    n_pos = NB * blk
+    live_pos = int(sum(min(n, n_pos) - lv for n, lv in zip(lens, live)))
+    G = H // KH
+    nbytes = (live_pos * KH * 2 * d * 2          # live K and V rows, bf16
+              + 2 * B * H * d * 2                # q in, out
+              + B * NB * 4 + 2 * B * 4)          # table, lengths
+    t_ms, t_by = bound(nbytes, live_pos * KH * G * 4 * d, BF16_OPS_PER_S)
+    # Library yardstick: one SDPA call on K/V gathered into contiguous
+    # (B, KH, S, d) copies beforehand, with the same boolean mask.
+    kg = kvwal.gather(args[1], args[3]).permute(0, 2, 1, 3).contiguous()
+    vg = kvwal.gather(args[2], args[3]).permute(0, 2, 1, 3).contiguous()
+    mask = live_mask(args[4], args[5], n_pos)[:, None, None, :]
+    qs = args[0][:, :, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+    lib_err = (sdpa()[:, :, 0].float()
+               - tide_attention_ref(*args).float()).abs().max()
+    return dict(
+        replaces="src/repro/kernels/tide_attention/kernel.py:79",
+        shape=f"B={B} H={H} KH={KH} d={d} blk={blk} NB={NB} bf16, "
+              f"{live_pos} live positions",
+        max_abs_err=cases["bfloat16 window=0"], cases=cases,
+        ms=time_ms(lambda: tk.tide_attention(*args), cold=True),
+        plain_ms=time_ms(lambda: tide_attention_ref(*args), cold=True),
+        bound_ms=t_ms, bound_by=t_by,
+        library_ms=time_ms(sdpa, cold=True),
+        library="torch scaled_dot_product_attention (enable_gqa) on K/V "
+                f"gathered beforehand; max |diff| to plain {float(lib_err)}")
+
+
+# ------------------------------------------------------------ serving path
+
+def serve_path(cfg, seed: int, device: str = "cuda", *, requests: int = 16,
+               slots: int = 8, max_seq: int = 2048, new_tokens: int = 32,
+               prompt_lens: tuple = (16, 1024)) -> dict:
+    """Serve ``requests`` greedy requests through ``ServingEngine``; check
+    every answer's shape and range, the kernel's launch count and the
+    recycled segments.  Returns the engine (still holding its weights) and
+    the measurements."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    engine = ServingEngine(cfg, T.init_params(cfg, gen), batch_slots=slots,
+                           max_seq=max_seq, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
+        prompt_lens[0], prompt_lens[1] + 1))) for _ in range(requests)]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    done = engine.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+
+    if len(done) != requests or not all(r.done for r in reqs):
+        fail("not every request retired")
+    for r in reqs:
+        if len(r.out_tokens) != new_tokens or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"request {r.rid}: {len(r.out_tokens)} tokens, some outside "
+                 f"[0, {cfg.vocab})")
+    want = cfg.n_layers * engine.decode_steps
+    if launches["tide_attention"] != want:
+        fail(f"tide_attention launched {launches['tide_attention']} times, "
+             f"not {cfg.n_layers} layers x {engine.decode_steps} steps")
+    blocks = sum(-(-(len(p) + new_tokens - 1) // cfg.kv_block)
+                 for p in prompts)
+    if engine.segments_recycled != blocks:
+        fail(f"{engine.segments_recycled} segments recycled, the requests "
+             f"used {blocks} blocks")
+    tokens = requests * new_tokens
+    return engine, dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        slots=slots, max_seq=max_seq, requests=requests,
+        prompt_tokens=sum(len(p) for p in prompts), new_tokens=tokens,
+        launches=launches, decode_steps=engine.decode_steps,
+        segments_recycled=engine.segments_recycled, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        prefill_ms_per_request=engine.prefill_s / engine.prefills * 1e3,
+        decode_ms_per_step=engine.decode_s / engine.decode_steps * 1e3)
+
+
+def _fill_slots(engine, seed: int, prompt_lens=(16, 1024)) -> None:
+    """Admit one request into every slot (prompts of the given lengths) and
+    take one step, so that every slot decodes over its own cache."""
+    rng = np.random.default_rng(seed + 1)
+    for _ in range(engine.slots):
+        n = int(rng.integers(prompt_lens[0], prompt_lens[1] + 1))
+        engine.submit(rng.integers(0, engine.cfg.vocab, n),
+                      max_new_tokens=1 << 20)
+    engine.step()
+
+
+def kernel_vs_plain_step(engine) -> dict:
+    """One decode step from the engine's cache: through the kernel, through
+    its plain version, and, where the engine runs below fp32, through the
+    plain version in fp32 (the same weights and cache entries, widened) →
+    {"kernel": logits, "plain": logits, "fp32": logits or None}."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.tide_attention.ref import tide_attention_ref
+    from repro_torch.models import serve
+    tokens = torch.tensor([engine.active[s].out_tokens[-1]
+                           for s in range(engine.slots)],
+                          dtype=torch.int32, device=engine.device)
+    cfg32 = dataclasses.replace(engine.cfg, dtype="float32")
+    runs = {"kernel": (serve.decode_attention, engine.cfg, None),
+            "plain": (tide_attention_ref, engine.cfg, None),
+            "fp32": (tide_attention_ref, cfg32, torch.float32)}
+    if engine.cfg.adtype == torch.float32:
+        del runs["fp32"]
+    out = {"fp32": None}
+    attend = serve.decode_attention
+    try:
+        for name, (fn, cfg, dtype) in runs.items():
+            serve.decode_attention = fn
+            cache = {k: v.to(dtype) if dtype and k.startswith("arena")
+                     else v.clone() for k, v in engine.cache.items()}
+            with torch.no_grad():
+                out[name] = serve.decode_step(engine.params, cfg, cache,
+                                              tokens)[0].float()
+            del cache
+    finally:
+        serve.decode_attention = attend
+    return out
+
+
+def profile_step(engine) -> dict:
+    """One decode step (every slot active) under torch.profiler: wall time,
+    device time by op, the kernel's share and the device's idle share; then
+    one under cProfile: the host functions that take the most time of their
+    own."""
+    import cProfile
+    import pstats
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        if t > 0 and not ev.key.startswith(("aten::", "Activity")):
+            dev[ev.key[:70]] = dev.get(ev.key[:70], 0) + t / 1e3
+    busy = sum(dev.values())
+    tide = sum(t for k, t in dev.items() if "tide" in k)
+    host = cProfile.Profile()
+    host.runcall(engine.step)
+    stats = pstats.Stats(host).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall, "tide_attention_ms": tide,
+            "tide_attention_share": tide / busy if busy else 0.0,
+            "device_ms_by_op": dict(sorted(dev.items(),
+                                           key=lambda kv: -kv[1])[:10]),
+            "host_own_ms_by_function": {
+                f"{Path(f).name}:{line}:{fn}": st[2] * 1e3
+                for (f, line, fn), st in top}}
+
+
+def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
+                smoke: bool = False) -> dict:
+    """The serving path at full width, then the decode-step checks: the
+    profile, and kernel against plain in bf16 over every layer and in fp32
+    over 4 layers."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch, smoke=smoke)
+    small = dict(requests=6, slots=3, max_seq=64, new_tokens=5,
+                 prompt_lens=(2, 20)) if smoke else {}
+    engine, res = serve_path(cfg, seed, device, **small)
+    say(f"serving path: {json.dumps(res)}")
+    plens = small.get("prompt_lens", (16, 1024))
+    _fill_slots(engine, seed, plens)
+    if device == "cuda":
+        prof = res["profile"] = profile_step(engine)
+        # The profiler's host overhead stretches the step it traces; the
+        # idle share that describes serving is the device's busy time
+        # against the unprofiled mean step.
+        prof["idle_share_unprofiled"] = \
+            1 - prof["device_busy_ms"] / res["decode_ms_per_step"]
+        say(f"serving path, decode step profile: {json.dumps(prof)}")
+    step = kernel_vs_plain_step(engine)
+    k, p, ref = step["kernel"], step["plain"], step["fp32"]
+    # bf16 over all layers.  Kernel and plain version differ only in the
+    # order of the fp32 sums inside attention, which flips the last bit of
+    # some bf16 attention outputs, and 32 layers of bf16 arithmetic carry
+    # such flips on to the logits.  Both are bf16 computations of one
+    # function, so each lies within the bf16 error of the same step run in
+    # fp32.  A maximum over ~1M logits is set by outliers, so the check that
+    # binds is on the mean: the kernel's mean error against the fp32 step
+    # may exceed the plain version's by at most a quarter, which a
+    # systematic error in the kernel would break.  Beside it, the largest
+    # difference stays within twice the plain version's own largest error
+    # against fp32 (the sum of two errors of the plain version's size).
+    err_plain = float((p - ref).abs().max())
+    bf = res["bf16_step"] = dict(
+        max_abs_err=float((k - p).abs().max()), tol=2 * err_plain,
+        kernel_vs_fp32=float((k - ref).abs().max()), plain_vs_fp32=err_plain,
+        mean_kernel_vs_fp32=float((k - ref).abs().mean()),
+        mean_plain_vs_fp32=float((p - ref).abs().mean()),
+        max_abs_logit=float(ref.abs().max()),
+        argmax_agree=int((k.argmax(-1) == p.argmax(-1)).sum()),
+        rows=k.shape[0])
+    bf["mean_tol"] = 1.25 * bf["mean_plain_vs_fp32"]
+    say(f"serving path, bf16 decode step: {json.dumps(bf)}")
+    if not torch.isfinite(k).all():
+        fail("decode step logits, kernel, bf16: not finite")
+    if bf["mean_kernel_vs_fp32"] > bf["mean_tol"]:
+        fail("decode step logits, bf16: the kernel's mean |diff| to the fp32 "
+             "step exceeds 1.25 times the plain version's")
+    if bf["max_abs_err"] > bf["tol"]:
+        fail("decode step logits, kernel against plain, bf16: max |diff| "
+             "beyond twice the plain version's error against fp32")
+    del engine, step, k, p, ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, 4),
+                                dtype="float32")
+    engine, _ = serve_path(cfg32, seed, device, **dict(small, requests=1,
+                                                       new_tokens=2))
+    _fill_slots(engine, seed, plens)
+    step = kernel_vs_plain_step(engine)
+    k, p = step["kernel"], step["plain"]
+    res["fp32_step"] = dict(n_layers=cfg32.n_layers,
+                            max_abs_err=float((k - p).abs().max()),
+                            max_abs_logit=float(p.abs().max()))
+    say(f"serving path, fp32 decode step: {json.dumps(res['fp32_step'])}")
+    _close(k, p, 2e-4)
+    del engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 # -------------------------------------------------------------- main path
 
 def make_keys(n: int, tag: bytes) -> list[bytes]:
@@ -305,8 +663,6 @@ def main_path(n_keys: int, seed: int, workdir: str,
               device: str = "cuda") -> dict:
     import torch
     from repro_torch.core.tidestore import DbConfig, KeyspaceConfig, TideDB
-    from repro_torch.kernels.bloom_check import kernel as bk
-    from repro_torch.kernels.optimistic_lookup import kernel as lk
     rep = 1024 // 32                   # value = key x 32: 1 KiB, checkable
     tag = b"tidehunter-smoke-%d:" % seed
     keys = make_keys(n_keys, tag)
@@ -317,9 +673,7 @@ def main_path(n_keys: int, seed: int, workdir: str,
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     res = {"keys": n_keys, "value_bytes": 32 * rep}
 
-    for launches in (bk.launches, lk.launches):
-        for name in launches:
-            launches[name] = 0
+    reset_launches()
     db = TideDB(workdir, cfg)
     t0 = time.perf_counter()
     for i in range(0, n_keys, BATCH):
@@ -345,7 +699,7 @@ def main_path(n_keys: int, seed: int, workdir: str,
     t6 = time.perf_counter()
     if vals != [k * rep for k in gkeys]:
         fail("multi_get answers differ from what was written")
-    res["launches"] = {**bk.launches, **lk.launches}
+    res["launches"] = read_launches()
     res.update(
         put_s=t1 - t0, put_ops_s=n_keys / (t1 - t0),
         flush_close_s=t2 - t1, reopen_s=t3 - t2,
@@ -420,6 +774,9 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card: torch.cuda.is_available() is False")
+    # fp32 comparisons must not drop to TF32 in their matrix products.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the repro_torch package is missing under {SRC}")
     sys.path.insert(0, str(SRC))
@@ -440,6 +797,7 @@ def main() -> None:
                 say(f"  {name}: {line.strip()}")
 
     kernels = kernel_phase(args.seed)
+    kernels["tide_attention"] = tide_phase(args.seed)
     say(f"kernel phase: {json.dumps(kernels)}")
 
     if args.keys < 1 << 20:
@@ -457,21 +815,31 @@ def main() -> None:
     for name in ("bloom_check_ragged", "optimistic_lookup"):
         if path["launches"][name] < 1:
             fail(f"the main path never launched {name}")
+
+    served = serve_phase(args.seed)
+    say(f"serving path [{card}]: {json.dumps(served)}")
+    say(f"serving path [{card}]: {served['arch']}, {served['requests']} "
+        f"requests, prefill {served['prefill_ms_per_request']:.1f} ms a "
+        f"request, decode {served['decode_ms_per_step']:.2f} ms a step, "
+        f"{served['tokens_per_s']:.1f} tokens/s")
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
     rows = []
-    for name, src in (("bloom_check_ragged", "bloom_check.cu"),
-                      ("bloom_check", "bloom_check.cu"),
-                      ("optimistic_lookup", "optimistic_lookup.cu")):
+    for name, src, launches in (
+            ("bloom_check_ragged", "bloom_check.cu", path["launches"]),
+            ("bloom_check", "bloom_check.cu", path["launches"]),
+            ("optimistic_lookup", "optimistic_lookup.cu", path["launches"]),
+            ("tide_attention", "tide_attention.cu", served["launches"])):
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": k["replaces"],
             "on_main_path": name != "bloom_check",
-            "launches": path["launches"][name],
-            "mismatches": k["mismatches"], "max_abs_err": k["max_abs_err"],
+            "launches": launches[name],
+            "mismatches": k.get("mismatches"),
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "shape": k["shape"],

@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bloom_check", "optimistic_lookup")
+SOURCES = ("bloom_check", "optimistic_lookup", "tide_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,15 +115,20 @@ def stream_arg(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def check_tensor(t, name: str, dtype, device, n=None) -> None:
-    """Raise unless ``t`` is a contiguous 1-D ``dtype`` tensor on the card
-    ``device`` (with ``n`` entries when given): what a kernel takes."""
+def check_tensor(t, name: str, dtype, device, n=None, *, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on the card
+    ``device`` of shape ``shape`` or, without one, 1-D (with ``n`` entries
+    when given): what a kernel takes."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must lie on the card {device}, "
                          f"not on {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
-    if t.dim() != 1 or (n is not None and t.shape[0] != n):
+    if shape is not None:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, not "
+                             f"{tuple(t.shape)}")
+    elif t.dim() != 1 or (n is not None and t.shape[0] != n):
         raise ValueError(f"{name} must have shape ({n},), not "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():

@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-its engine refuses to run without a card unless the caller asks for the
+its engines refuse to run without a card unless the caller asks for the
 CPU."""
 import os
 import subprocess
@@ -10,6 +10,9 @@ import pytest
 import torch
 
 import repro_torch.core.tidestore as port
+from repro_torch.configs.registry import get_config
+from repro_torch.models import transformer
+from repro_torch.serving.engine import ServingEngine
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -26,6 +29,9 @@ def test_imports_neither_jax_nor_repro():
     mods = list(_modules())
     assert "repro_torch.core.tidestore.db" in mods
     assert "repro_torch.kernels.bloom_check.kernel" in mods
+    assert "repro_torch.kernels.tide_attention.kernel" in mods
+    assert "repro_torch.models.serve" in mods
+    assert "repro_torch.serving.engine" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -49,3 +55,14 @@ def test_default_device_needs_a_card(tmp_path, monkeypatch):
     with port.TideDB(str(tmp_path / "cpu"), port.DbConfig(device="cpu")) as db:
         db.put(b"k" * 32, b"v")
         assert db.get(b"k" * 32) == b"v"
+
+
+def test_serving_engine_default_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3-8b", smoke=True)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params)
+    engine = ServingEngine(cfg, params, device="cpu", max_seq=16)
+    engine.submit([1, 2, 3], max_new_tokens=2)
+    assert [len(r.out_tokens) for r in engine.run_until_drained()] == [2]

@@ -6,8 +6,11 @@ with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
-Everything is integer, so kernel and plain version must be equal.  The
-input builders here are shared with ``test_torch_kernels.py``.
+The Bloom probe and the lookup are integer, so kernel and plain version
+must be equal; tide_attention is held at the tolerances of the JAX
+package's ``TestTideAttention`` (2e-5 in fp32, 2e-2 in bf16).  The input
+builders here are shared with ``test_torch_kernels.py`` and
+``test_torch_attention.py``.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,9 @@ from repro_torch.kernels.bloom_check.ref import (bloom_check_ragged_ref,
 from repro_torch.kernels.optimistic_lookup import kernel as lookup_kernel
 from repro_torch.kernels.optimistic_lookup import ops as lookup_ops
 from repro_torch.kernels.optimistic_lookup.ref import optimistic_lookup_ref
+from repro_torch.kernels.tide_attention import kernel as tide_kernel
+from repro_torch.kernels.tide_attention.ops import decode_attention
+from repro_torch.kernels.tide_attention.ref import tide_attention_ref
 
 
 def _t(a):
@@ -95,6 +101,19 @@ def _lookup_case(kind, seed):
     edges = np.uint32([0, 1, 0xFFFFFFFF, 0xFFFFFFFE, keys[0], keys[-1]])
     return keys.astype(np.uint32), np.concatenate([queries,
                                                    edges]).astype(np.uint32)
+
+
+def _tide_case(seed, B, H, KH, dk, dv, NB, blk, lens, live):
+    """Decode-attention inputs as float32 numpy: q (B,H,dk), arenas
+    (B,NB,blk,KH,d) of standard normals, a random permutation as each
+    sequence's table, and the given lengths and watermarks."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, dk)).astype(np.float32)
+    ak = rng.standard_normal((B, NB, blk, KH, dk)).astype(np.float32)
+    av = rng.standard_normal((B, NB, blk, KH, dv)).astype(np.float32)
+    table = np.stack([rng.permutation(NB) for _ in range(B)]).astype(np.int32)
+    return (q, ak, av, table, np.asarray(lens, np.int32),
+            np.asarray(live, np.int32))
 
 
 # ------------------------------------------------------------- on the card
@@ -180,3 +199,67 @@ def test_probe_cells_batch_on_card(card):
     assert bloom_kernel.launches["bloom_check_ragged"] == before + 1
     np.testing.assert_array_equal(
         got, bloom_ops.probe_cells_batch(h1, h2, off, nb, bits, device="cpu"))
+
+
+def _tide_on_card(case, card, dtype):
+    q, ak, av, table, lens, live = case
+    return ([_t(a).to(card, dtype) for a in (q, ak, av)]
+            + [_t(a).to(card) for a in (table, lens, live)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,KH,dk,dv,NB,blk,window", [
+    (8, 32, 8, 128, 128, 16, 128, 0),     # Llama-3-8B decode
+    (8, 32, 8, 128, 128, 16, 128, 300),   # ... with a sliding window
+    (2, 8, 4, 64, 64, 4, 32, 0),          # GQA
+    (1, 4, 1, 128, 128, 3, 128, 0),       # MQA
+    (3, 4, 4, 32, 32, 2, 16, 0),          # MHA
+    (2, 16, 2, 64, 32, 5, 64, 48),        # dk != dv, window
+])
+def test_tide_attention_kernel_on_card(card, dtype, tol, B, H, KH, dk, dv,
+                                       NB, blk, window):
+    rng = np.random.default_rng(B * 7 + dk)
+    lens = rng.integers(1, NB * blk + 1, B)
+    live = np.where(np.arange(B) == 0, lens // 2, 0)    # one pruned row
+    args = _tide_on_card(_tide_case(B + H, B, H, KH, dk, dv, NB, blk, lens,
+                                    live), card, dtype)
+    before = tide_kernel.launches["tide_attention"]
+    got = decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert tide_kernel.launches["tide_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, dv)
+    want = tide_attention_ref(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tide_attention_empty_rows_on_card(card, dtype):
+    """seq_len = 0 and first_live >= seq_len > 0 give exactly 0; the live
+    row beside them still matches the plain version."""
+    args = _tide_on_card(_tide_case(4, 3, 8, 2, 64, 64, 4, 32, [0, 40, 70],
+                                    [0, 64, 16]), card, dtype)
+    got = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert not got[:2].any()
+    want = tide_attention_ref(*args)
+    assert not want[:2].any()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[2].float(), want[2].float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_tide_attention_rejects_what_it_cannot_take(card):
+    args = _tide_on_card(_tide_case(4, 2, 8, 2, 64, 64, 4, 32, [5, 9],
+                                    [0, 0]), card, torch.float32)
+    with pytest.raises(TypeError):
+        tide_kernel.tide_attention(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        tide_kernel.tide_attention(args[0].transpose(0, 1).contiguous()
+                                   .transpose(0, 1), *args[1:])
+    with pytest.raises(ValueError, match="multiples"):
+        odd = [a[..., :6].contiguous() for a in args[:3]]
+        tide_kernel.tide_attention(*odd, *args[3:])
