@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch/CUDA port of Tidehunter: the storage path and
-KV-WAL decode serving of Llama-3-8B.
+"""Chip check of the PyTorch/CUDA port of Tidehunter: the storage path,
+KV-WAL decode serving of Llama-3-8B, Mamba-2 serving and RecurrentGemma
+decode through the KV-WAL's window and pruning.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -16,11 +17,12 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    at the shapes its main path gives it: the storage kernels bit for bit,
    with the u32 wraparound and budget-exhaustion cases; tide_attention at
    Llama-3-8B decode shapes in bf16 (2e-2, and 4e-3 absolute) and fp32
-   (2e-5), with a pruned
-   row, a sliding window and two empty rows that must be exactly 0.  Times
-   from CUDA events (median of 30) beside the plain version, the library
-   call where one exists, and the least time the card's memory rate allows
-   for this run's data.
+   (2e-5), with a pruned row, a sliding window and two empty rows that must
+   be exactly 0; ssd_scan at Mamba-2-1.3B widths (8 x 2048, a ragged 1000
+   with an initial state, 100 < chunk) in fp32 (3e-4) and bf16 (mean-error
+   rule).  Times from CUDA events (median of 30) beside the plain version,
+   the library call where one exists, and the least time the card allows
+   for this run's data (its memory rate, or its fp32 rate for ssd_scan).
 3. The storage path, through the engine's public API with ``device="cuda"``:
    ``put_many`` of N uniform 32-byte keys (sha256) with 1 KiB values in
    batches of 4096, ``flush``, ``close``, reopen (cells UNLOADED, nothing
@@ -38,10 +40,22 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    torch.profiler, and one decode step from one cache goes once through the
    kernel and once through its plain version: at bf16 over 32 layers, and
    in fp32 over 4 layers at 2e-4.
+5. Mamba-2-1.3B at full width and depth (bf16, random weights):
+   ``serve.prefill`` of 8 x 2048 tokens and 32 greedy decode steps (ssd_scan
+   once a layer in prefill, never in decode), one 16384-token prefill, the
+   profiles of a decode step and a prefill, and one prefill through the
+   kernel and through its plain version (bf16 over 48 layers by the
+   mean-error rule, fp32 over 4 layers at 2e-4).
+6. RecurrentGemma-9B at full width and depth (bf16, random weights, the
+   fp32 tree freed once cast): ``serve.prefill`` of 4 x 2560 tokens into
+   4096-position arenas and 64 greedy decode steps (tide_attention once per
+   attention block a step, window 2048, ``first_live`` ending at 512), the
+   profile of a decode step, and one decode step through the kernel and
+   through its plain version.
 
 Every launch count is set to 0 just before each path and read just after.
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}``, each kernel with its
+launches on every path; the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -324,8 +338,9 @@ def kernel_phase(seed: int, device: str = "cuda") -> dict:
 def _launch_counts() -> list[dict]:
     from repro_torch.kernels.bloom_check import kernel as bk
     from repro_torch.kernels.optimistic_lookup import kernel as lk
+    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.tide_attention import kernel as tk
-    return [bk.launches, lk.launches, tk.launches]
+    return [bk.launches, lk.launches, tk.launches, sk.launches]
 
 
 def reset_launches() -> None:
@@ -502,38 +517,109 @@ def _fill_slots(engine, seed: int, prompt_lens=(16, 1024)) -> None:
     engine.step()
 
 
-def kernel_vs_plain_step(engine) -> dict:
-    """One decode step from the engine's cache: through the kernel, through
-    its plain version, and, where the engine runs below fp32, through the
-    plain version in fp32 (the same weights and cache entries, widened) →
-    {"kernel": logits, "plain": logits, "fp32": logits or None}."""
+def kernel_vs_plain(run, module, attr: str, plain, with_fp32: bool) -> dict:
+    """``run(wide)`` → logits, once through the kernel, once with
+    ``module.attr`` pointed at its plain version and, with ``with_fp32``,
+    once more through the plain version with ``wide=True`` (the caller runs
+    the same weights and inputs widened to fp32) → {"kernel": logits,
+    "plain": logits, "fp32": logits or None}, all as fp32."""
+    import torch
+    kernel = getattr(module, attr)
+    out = {"fp32": None}
+    runs = [("kernel", kernel, False), ("plain", plain, False)]
+    if with_fp32:
+        runs.append(("fp32", plain, True))
+    try:
+        for name, fn, wide in runs:
+            setattr(module, attr, fn)
+            with torch.no_grad():
+                out[name] = run(wide).float()
+    finally:
+        setattr(module, attr, kernel)
+    return out
+
+
+def decode_runner(params, cfg, cache: dict, tokens):
+    """``run(wide)`` for ``kernel_vs_plain``: one decode step from a copy of
+    ``cache`` (its floating-point entries widened to fp32 where ``wide``)."""
     import dataclasses
     import torch
-    from repro_torch.kernels.tide_attention.ref import tide_attention_ref
     from repro_torch.models import serve
-    tokens = torch.tensor([engine.active[s].out_tokens[-1]
-                           for s in range(engine.slots)],
-                          dtype=torch.int32, device=engine.device)
-    cfg32 = dataclasses.replace(engine.cfg, dtype="float32")
-    runs = {"kernel": (serve.decode_attention, engine.cfg, None),
-            "plain": (tide_attention_ref, engine.cfg, None),
-            "fp32": (tide_attention_ref, cfg32, torch.float32)}
-    if engine.cfg.adtype == torch.float32:
-        del runs["fp32"]
-    out = {"fp32": None}
-    attend = serve.decode_attention
-    try:
-        for name, (fn, cfg, dtype) in runs.items():
-            serve.decode_attention = fn
-            cache = {k: v.to(dtype) if dtype and k.startswith("arena")
-                     else v.clone() for k, v in engine.cache.items()}
-            with torch.no_grad():
-                out[name] = serve.decode_step(engine.params, cfg, cache,
-                                              tokens)[0].float()
-            del cache
-    finally:
-        serve.decode_attention = attend
-    return out
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def run(wide):
+        step = {k: v.float().clone() if wide and v.is_floating_point()
+                else v.clone()
+                for k, v in cache.items()}
+        return serve.decode_step(params, cfg32 if wide else cfg, step,
+                                 tokens)[0]
+    return run
+
+
+def bf16_check(name: str, step: dict, max_rule: bool = True) -> dict:
+    """Kernel and plain version are two bf16 computations of one function,
+    so each lies within the bf16 error of the same computation in fp32.  A
+    maximum over ~1M logits is set by outliers, so the check that binds is
+    on the mean: the kernel's mean error against the fp32 run may exceed the
+    plain version's by at most a quarter, which a systematic error in the
+    kernel would break.  With ``max_rule`` the largest difference between
+    kernel and plain must also stay within twice the plain version's own
+    largest error against fp32 (the sum of two errors of its size)."""
+    import torch
+    k, p, ref = step["kernel"], step["plain"], step["fp32"]
+    if not torch.isfinite(k).all():
+        fail(f"{name}: kernel logits not finite")
+    err_plain = float((p - ref).abs().max())
+    bf = dict(
+        max_abs_err=float((k - p).abs().max()), tol=2 * err_plain,
+        kernel_vs_fp32=float((k - ref).abs().max()), plain_vs_fp32=err_plain,
+        mean_kernel_vs_fp32=float((k - ref).abs().mean()),
+        mean_plain_vs_fp32=float((p - ref).abs().mean()),
+        max_abs_logit=float(ref.abs().max()),
+        argmax_agree=int((k.argmax(-1) == p.argmax(-1)).sum()),
+        rows=k.shape[0])
+    bf["mean_tol"] = 1.25 * bf["mean_plain_vs_fp32"]
+    say(f"{name}: {json.dumps(bf)}")
+    if bf["mean_kernel_vs_fp32"] > bf["mean_tol"]:
+        fail(f"{name}: the kernel's mean |diff| to the fp32 run exceeds 1.25 "
+             f"times the plain version's")
+    if max_rule and bf["max_abs_err"] > bf["tol"]:
+        fail(f"{name}: kernel against plain, max |diff| beyond twice the "
+             f"plain version's error against fp32")
+    return bf
+
+
+def device_profile(fn, match: str) -> dict:
+    """``fn()`` under torch.profiler: wall time, device time by op, the
+    share of the kernels whose name holds ``match`` and of the matrix
+    products, and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        # Operator and runtime- and driver-API rows (cudaLaunchKernel,
+        # cuLaunchKernelEx, "Command Buffer Full") carry device time of the
+        # kernels they launch: skip them.
+        if t > 0 and not ev.key.startswith(("aten::", "Activity", "cuda",
+                                            "cuLaunch", "Command Buffer")):
+            dev[ev.key[:70]] = dev.get(ev.key[:70], 0) + t / 1e3
+    busy = sum(dev.values())
+    hit = sum(t for k, t in dev.items() if match in k)
+    mm = sum(t for k, t in dev.items()
+             if any(w in k for w in ("gemm", "nvjet", "cutlass", "xmma")))
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall, f"{match}_ms": hit,
+            f"{match}_share": hit / busy if busy else 0.0,
+            "matmul_ms": mm, "matmul_share": mm / busy if busy else 0.0,
+            "device_ms_by_op": dict(sorted(dev.items(),
+                                           key=lambda kv: -kv[1])[:10])}
 
 
 def profile_step(engine) -> dict:
@@ -541,35 +627,33 @@ def profile_step(engine) -> dict:
     device time by op, the kernel's share and the device's idle share; then
     one under cProfile: the host functions that take the most time of their
     own."""
+    prof = device_profile(engine.step, "tide")
+    prof["host_own_ms_by_function"] = host_profile(engine.step)
+    return prof
+
+
+def host_profile(fn) -> dict:
+    """``fn()`` under cProfile: the host functions that take the most time
+    of their own, in ms (cProfile adds a cost to every Python call, so the
+    proportions count, not the sums)."""
     import cProfile
     import pstats
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0) or 0
-        if t > 0 and not ev.key.startswith(("aten::", "Activity")):
-            dev[ev.key[:70]] = dev.get(ev.key[:70], 0) + t / 1e3
-    busy = sum(dev.values())
-    tide = sum(t for k, t in dev.items() if "tide" in k)
     host = cProfile.Profile()
-    host.runcall(engine.step)
+    host.runcall(fn)
     stats = pstats.Stats(host).stats
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "idle_share": 1 - busy / wall, "tide_attention_ms": tide,
-            "tide_attention_share": tide / busy if busy else 0.0,
-            "device_ms_by_op": dict(sorted(dev.items(),
-                                           key=lambda kv: -kv[1])[:10]),
-            "host_own_ms_by_function": {
-                f"{Path(f).name}:{line}:{fn}": st[2] * 1e3
-                for (f, line, fn), st in top}}
+    return {f"{Path(f).name}:{line}:{fn_}": st[2] * 1e3
+            for (f, line, fn_), st in top}
+
+
+def _engine_step(engine):
+    """``decode_runner`` over the engine's weights and cache, each slot's
+    last token as input."""
+    import torch
+    tokens = torch.tensor([engine.active[s].out_tokens[-1]
+                           for s in range(engine.slots)],
+                          dtype=torch.int32, device=engine.device)
+    return decode_runner(engine.params, engine.cfg, engine.cache, tokens)
 
 
 def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
@@ -596,39 +680,12 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
         prof["idle_share_unprofiled"] = \
             1 - prof["device_busy_ms"] / res["decode_ms_per_step"]
         say(f"serving path, decode step profile: {json.dumps(prof)}")
-    step = kernel_vs_plain_step(engine)
-    k, p, ref = step["kernel"], step["plain"], step["fp32"]
-    # bf16 over all layers.  Kernel and plain version differ only in the
-    # order of the fp32 sums inside attention, which flips the last bit of
-    # some bf16 attention outputs, and 32 layers of bf16 arithmetic carry
-    # such flips on to the logits.  Both are bf16 computations of one
-    # function, so each lies within the bf16 error of the same step run in
-    # fp32.  A maximum over ~1M logits is set by outliers, so the check that
-    # binds is on the mean: the kernel's mean error against the fp32 step
-    # may exceed the plain version's by at most a quarter, which a
-    # systematic error in the kernel would break.  Beside it, the largest
-    # difference stays within twice the plain version's own largest error
-    # against fp32 (the sum of two errors of the plain version's size).
-    err_plain = float((p - ref).abs().max())
-    bf = res["bf16_step"] = dict(
-        max_abs_err=float((k - p).abs().max()), tol=2 * err_plain,
-        kernel_vs_fp32=float((k - ref).abs().max()), plain_vs_fp32=err_plain,
-        mean_kernel_vs_fp32=float((k - ref).abs().mean()),
-        mean_plain_vs_fp32=float((p - ref).abs().mean()),
-        max_abs_logit=float(ref.abs().max()),
-        argmax_agree=int((k.argmax(-1) == p.argmax(-1)).sum()),
-        rows=k.shape[0])
-    bf["mean_tol"] = 1.25 * bf["mean_plain_vs_fp32"]
-    say(f"serving path, bf16 decode step: {json.dumps(bf)}")
-    if not torch.isfinite(k).all():
-        fail("decode step logits, kernel, bf16: not finite")
-    if bf["mean_kernel_vs_fp32"] > bf["mean_tol"]:
-        fail("decode step logits, bf16: the kernel's mean |diff| to the fp32 "
-             "step exceeds 1.25 times the plain version's")
-    if bf["max_abs_err"] > bf["tol"]:
-        fail("decode step logits, kernel against plain, bf16: max |diff| "
-             "beyond twice the plain version's error against fp32")
-    del engine, step, k, p, ref
+    from repro_torch.kernels.tide_attention.ref import tide_attention_ref
+    from repro_torch.models import serve
+    step = kernel_vs_plain(_engine_step(engine), serve, "decode_attention",
+                           tide_attention_ref, with_fp32=True)
+    res["bf16_step"] = bf16_check("serving path, bf16 decode step", step)
+    del engine, step
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -638,7 +695,8 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
     engine, _ = serve_path(cfg32, seed, device, **dict(small, requests=1,
                                                        new_tokens=2))
     _fill_slots(engine, seed, plens)
-    step = kernel_vs_plain_step(engine)
+    step = kernel_vs_plain(_engine_step(engine), serve, "decode_attention",
+                           tide_attention_ref, with_fp32=False)
     k, p = step["kernel"], step["plain"]
     res["fp32_step"] = dict(n_layers=cfg32.n_layers,
                             max_abs_err=float((k - p).abs().max()),
@@ -649,6 +707,357 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------- kernel E: SSD scan
+
+def _ssd_inputs(rng, b, l, h, p, n, dev, init=False):
+    """x, dt (after a softplus), A (negative), Bm, Cm and, with ``init``, an
+    initial state, fp32 on ``dev``, drawn as the JAX package's
+    ``TestSsdScan`` draws them."""
+    import torch
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        dev)
+    x = t(rng.standard_normal((b, l, h, p), dtype=np.float32))
+    dt = t(np.logaddexp(rng.standard_normal((b, l, h)), 0))
+    A = t(-np.exp(rng.standard_normal(h) * 0.3))
+    Bm = t(rng.standard_normal((b, l, n)) * 0.5)
+    Cm = t(rng.standard_normal((b, l, n)) * 0.5)
+    s0 = t(rng.standard_normal((b, h, p, n)) * 0.5) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def ssd_cost(b, l, h, p, n, c) -> tuple[float, float, float]:
+    """(bytes, tensor-core flops, fp32 flops) of one SSD scan with bf16 x,
+    Bm, Cm and y.  Bytes: those four in bf16, dt, A and the final state in
+    fp32, each read or written once.  Flops: what the function needs, the
+    causal half of each chunk's c x c square (its c(c+1)/2 pairs j <= i).
+    C·Bᵀ multiplies two bf16 inputs into fp32, which bf16 tensor cores do
+    exactly: 2n a pair a (sequence, chunk).  Every other product takes an
+    fp32 operand (the decays, the carried state), so it runs at the fp32
+    rate: 2p a pair for the within-chunk term and 4cnp for the cross-chunk
+    term and the state update, a (sequence, chunk, head)."""
+    nc = -(-l // c)
+    pairs = c * (c + 1) // 2
+    nbytes = (4 * b * l * h * p + 4 * b * l * n
+              + 4 * b * l * h + 4 * h + 4 * b * h * p * n)
+    tc_flops = b * nc * 2 * pairs * n
+    fp32_flops = b * nc * h * (2 * pairs * p + 4 * c * n * p)
+    return nbytes, tc_flops, fp32_flops
+
+
+def ssd_phase(seed: int, device: str = "cuda") -> dict:
+    """ssd_scan at Mamba-2-1.3B widths (64 heads of 64, d_state 128, chunk
+    256): the prefill shape (8 x 2048), a ragged length (1000, the padding
+    path) with an initial state, and l = 100 < chunk.  fp32 against the
+    plain version at 3e-4; bf16 by the mean-error rule against the plain
+    version run in fp32.  Times in bf16 at the prefill shape and at one
+    16384-token prompt."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan as ssd_ref
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 5)
+    h, p, n, c = 64, 64, 128, 256
+    cases, worst = {}, 0.0
+    for b, l, init in ((8, 2048, False), (2, 1000, True), (2, 100, False)):
+        x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, b, l, h, p, n, dev, init)
+        y, st = ssd(x, dt, A, Bm, Cm, chunk=c, init_state=s0)
+        yr, sr = ssd_ref(x, dt, A, Bm, Cm, chunk=c, init_state=s0)
+        err = max(_close(y, yr, 3e-4), _close(st, sr, 3e-4))
+        worst = max(worst, err)
+        del y, st, yr, sr
+        xb, Bb, Cb = (a.bfloat16() for a in (x, Bm, Cm))
+        got = ssd(xb, dt, A, Bb, Cb, chunk=c, init_state=s0)
+        plain = ssd_ref(xb, dt, A, Bb, Cb, chunk=c, init_state=s0)
+        want = ssd_ref(xb.float(), dt, A, Bb.float(), Cb.float(),
+                       chunk=c, init_state=s0)
+        # y is rounded to bf16 (and the plain version rounds C.B^T too):
+        # the mean-error rule.  The state is fp32 from the same rounded
+        # inputs in both, so it is held at the fp32 tolerance.
+        mk = float((got[0].float() - want[0]).abs().mean())
+        mp = float((plain[0].float() - want[0]).abs().mean())
+        case = {"fp32_max_abs_err": err, "bf16_y_mean_err": mk,
+                "bf16_y_plain_mean_err": mp,
+                "bf16_y_max_abs_diff_to_plain": float(
+                    (got[0].float() - plain[0].float()).abs().max()),
+                "bf16_state_max_abs_err": _close(got[1], want[1], 3e-4)}
+        if not torch.isfinite(got[0].float()).all() or mk > 1.25 * mp:
+            fail(f"ssd_scan bf16 b={b} l={l}: y mean error {mk} beyond "
+                 f"1.25 x the plain version's {mp}")
+        cases[f"b={b} l={l}" + (" init" if init else "")] = case
+        del got, plain, want, x, dt, A, Bm, Cm, xb, Bb, Cb
+        _free(device)
+
+    timing = {}
+    for b, l in ((8, 2048), (1, 16384)):
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(rng, b, l, h, p, n, dev)
+        xb, Bb, Cb = (a.bfloat16() for a in (x, Bm, Cm))
+        del x, Bm, Cm
+        nbytes, tc_flops, fp32_flops = ssd_cost(b, l, h, p, n, c)
+        # Tensor cores and fp32 pipes run side by side: the slower binds.
+        b_ms, b_by = max(bound(nbytes, fp32_flops),
+                         bound(nbytes, tc_flops, BF16_OPS_PER_S))
+        timing[f"b={b} l={l}"] = dict(
+            ms=time_ms(lambda: sk.ssd_scan(xb, dt, A, Bb, Cb, chunk=c)),
+            plain_ms=time_ms(lambda: ssd_ref(xb, dt, A, Bb, Cb, chunk=c)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            fp32_flops=fp32_flops, fp32_ms=fp32_flops / FP32_OPS_PER_S * 1e3,
+            tensor_core_flops=tc_flops,
+            tensor_core_ms=tc_flops / BF16_OPS_PER_S * 1e3)
+        del xb, Bb, Cb, dt, A
+    main = timing["b=8 l=2048"]
+    return dict(
+        replaces="src/repro/kernels/ssd_scan/kernel.py:79",
+        shape=f"b=8 l=2048 h={h} p={p} n={n} chunk={c}, bf16 x/B/C/y",
+        max_abs_err=worst, cases=cases, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        library="none: no single PyTorch call computes the SSD chunk scan",
+        timing=timing)
+
+
+def _peak_bytes(device) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _reset_peak(device) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _free(device) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _greedy(params, cfg, cache, logits, steps: int):
+    """``steps`` greedy decode steps → (tokens (B, steps), last logits,
+    cache)."""
+    import torch
+    from repro_torch.models import serve
+    out = []
+    tok = logits.argmax(-1).to(torch.int32)
+    for _ in range(steps):
+        out.append(tok)
+        logits, cache = serve.decode_step(params, cfg, cache, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+    return torch.stack(out, 1), logits, cache
+
+
+def _check_outputs(name, cfg, logits, tokens) -> None:
+    import torch
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{name}: logits not finite")
+    if logits.shape[-1] != cfg.vocab or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        fail(f"{name}: tokens outside [0, {cfg.vocab})")
+
+
+def mamba_phase(seed: int, device: str = "cuda", smoke: bool = False
+                ) -> dict:
+    """Mamba-2-1.3B at full width and depth, bf16, random weights:
+    ``serve.prefill`` of 8 prompts x 2048 tokens, 32 greedy decode steps,
+    then one 16384-token prompt, prefill only.  E must launch once a layer
+    in each prefill and never in decode.  Then one prefill through E and
+    through its plain version: bf16 over every layer by the mean-error rule,
+    fp32 over 4 layers at 2e-4."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import serve, ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import cast_weights
+    cfg = get_config("mamba2-1.3b", smoke=smoke)
+    B, S, steps, long_s = (2, 20, 4, 40) if smoke else (8, 2048, 32, 16384)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = cast_weights(T.init_params(cfg, gen), cfg.adtype, device)
+    _free(device)
+    rng = np.random.default_rng(seed + 6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(device)
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=B, prompt_tokens=S, decode_steps=steps)
+
+    _reset_peak(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = serve.prefill(params, cfg, {"tokens": tokens},
+                                      max_seq=S + steps)
+    sync()
+    t1 = time.perf_counter()
+    pre = read_launches()
+    reset_launches()
+    with torch.no_grad():
+        out, last, cache = _greedy(params, cfg, cache, logits, steps)
+    sync()
+    t2 = time.perf_counter()
+    dec = read_launches()
+    _check_outputs("mamba2 prefill", cfg, logits, out)
+    _check_outputs("mamba2 decode", cfg, last, out)
+    if pre["ssd_scan"] != cfg.n_layers or dec["ssd_scan"] != 0:
+        fail(f"ssd_scan launched {pre['ssd_scan']} times in prefill and "
+             f"{dec['ssd_scan']} in decode, not {cfg.n_layers} and 0")
+    res.update(prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+               tokens_per_s=B * steps / (t2 - t1),
+               launches={k: pre[k] + dec[k] for k in pre},
+               launches_prefill=pre, launches_decode=dec,
+               peak_bytes=_peak_bytes(device))
+    if device == "cuda":
+        tok = last.argmax(-1).to(torch.int32)
+        step = lambda: serve.decode_step(params, cfg, cache, tok)
+        res["decode_profile"] = device_profile(step, "ssd")
+        res["decode_profile"]["idle_share_unprofiled"] = 1 - res[
+            "decode_profile"]["device_busy_ms"] / res["decode_ms_per_step"]
+        res["decode_profile"]["host_own_ms_by_function"] = host_profile(step)
+        res["prefill_profile"] = device_profile(
+            lambda: serve.prefill(params, cfg, {"tokens": tokens}, S), "ssd")
+    del cache
+    say(f"mamba2 path: {json.dumps(res)}")
+
+    # One long prompt, prefill only: the long-context case of the family.
+    _free(device)
+    _reset_peak(device)
+    long_tok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, long_s))
+                                .astype(np.int32)).to(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, cache = serve.prefill(params, cfg, {"tokens": long_tok}, long_s)
+    sync()
+    t1 = time.perf_counter()
+    lo = read_launches()
+    _check_outputs("mamba2 long prefill", cfg, lg, lg.argmax(-1))
+    if lo["ssd_scan"] != cfg.n_layers:
+        fail(f"ssd_scan launched {lo['ssd_scan']} times in the long prefill")
+    res["long_prompt"] = dict(tokens=long_s, prefill_ms=(t1 - t0) * 1e3,
+                              launches=lo, peak_bytes=_peak_bytes(device))
+    del cache, lg
+    _free(device)
+
+    # Kernel against plain: the 8 x 2048 prefill's last-token logits.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    step = kernel_vs_plain(
+        lambda wide: serve.prefill(params, cfg32 if wide else cfg,
+                                   {"tokens": tokens}, S)[0],
+        ssm, "ssd", ssm.ssd_scan, with_fp32=True)
+    res["bf16_prefill"] = bf16_check("mamba2 path, bf16 prefill", step,
+                                     max_rule=False)
+    del step, params
+    _free(device)
+    cfg4 = dataclasses.replace(cfg32, n_layers=min(cfg.n_layers, 4))
+    params4 = T.init_params(cfg4, gen)
+    step = kernel_vs_plain(
+        lambda wide: serve.prefill(params4, cfg4, {"tokens": tokens}, S)[0],
+        ssm, "ssd", ssm.ssd_scan, with_fp32=False)
+    k, p = step["kernel"], step["plain"]
+    res["fp32_prefill"] = dict(n_layers=cfg4.n_layers,
+                               max_abs_err=_close(k, p, 2e-4),
+                               max_abs_logit=float(p.abs().max()))
+    say(f"mamba2 path, fp32 prefill: {json.dumps(res['fp32_prefill'])}")
+    del params4, step
+    _free(device)
+    return res
+
+
+def griffin_phase(seed: int, device: str = "cuda", smoke: bool = False
+                  ) -> dict:
+    """RecurrentGemma-9B at full width and depth, bf16, random weights:
+    ``serve.prefill`` of 4 prompts x 2560 tokens (past the 2048 window) into
+    4096-position arenas, then 64 greedy decode steps.  D must launch once
+    per attention block a step (12), and first_live must end at the last
+    block wholly behind the window.  Then one decode step through D and
+    through its plain version, at window 2048 with first_live > 0."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.tide_attention.ref import tide_attention_ref
+    from repro_torch.models import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import cast_weights
+    cfg = get_config("recurrentgemma-9b", smoke=smoke)
+    g = cfg.griffin
+    B, S, max_seq, steps = (2, 20, 32, 8) if smoke else (4, 2560, 4096, 64)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    _reset_peak(device)
+    params32 = T.init_params(cfg, gen)
+    params = cast_weights(params32, cfg.adtype, device)
+    init_peak = _peak_bytes(device)
+    del params32                      # serve from the bf16 copy alone
+    _free(device)
+    _reset_peak(device)
+    rng = np.random.default_rng(seed + 7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(device)
+    n_attn = sum(1 for *_, kind, _ in T.griffin_blocks(params, cfg)
+                 if kind == "attn")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = serve.prefill(params, cfg, {"tokens": tokens},
+                                      max_seq)
+    sync()
+    t1 = time.perf_counter()
+    pre = read_launches()
+    reset_launches()
+    with torch.no_grad():
+        out, last, cache = _greedy(params, cfg, cache, logits, steps)
+    sync()
+    t2 = time.perf_counter()
+    dec = read_launches()
+    _check_outputs("griffin prefill", cfg, logits, out)
+    _check_outputs("griffin decode", cfg, last, out)
+    if dec["tide_attention"] != n_attn * steps or pre["tide_attention"]:
+        fail(f"tide_attention launched {dec['tide_attention']} times in "
+             f"{steps} decode steps (and {pre['tide_attention']} in "
+             f"prefill), not {n_attn} a step")
+    # The step at seq_len s prunes below ((s + 1 - window) // blk) * blk;
+    # the last step ran at s = S + steps - 1.
+    live = max(S + steps - g.window, 0) // cfg.kv_block * cfg.kv_block
+    if live <= 0 and not smoke:
+        fail("the griffin path never pruned a block")
+    got_live = cache["first_live"].tolist()
+    if got_live != [live] * B:
+        fail(f"first_live ended at {got_live}, not {live}")
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=B, prompt_tokens=S, max_seq=max_seq, decode_steps=steps,
+               window=g.window, kv_block=cfg.kv_block, first_live=got_live,
+               prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+               tokens_per_s=B * steps / (t2 - t1),
+               launches={k: pre[k] + dec[k] for k in pre},
+               init_peak_bytes=init_peak, peak_bytes=_peak_bytes(device))
+    tok = last.argmax(-1).to(torch.int32)
+    if device == "cuda":
+        run = decode_runner(params, cfg, cache, tok)
+        prof = res["decode_profile"] = device_profile(lambda: run(False),
+                                                      "tide")
+        prof["idle_share_unprofiled"] = \
+            1 - prof["device_busy_ms"] / res["decode_ms_per_step"]
+        prof["host_own_ms_by_function"] = host_profile(lambda: run(False))
+    say(f"griffin path: {json.dumps(res)}")
+    step = kernel_vs_plain(decode_runner(params, cfg, cache, tok), serve,
+                           "decode_attention", tide_attention_ref,
+                           with_fp32=True)
+    res["bf16_step"] = bf16_check("griffin path, bf16 decode step "
+                                  f"(window {g.window}, first_live {live})",
+                                  step)
+    del params, cache, step
+    _free(device)
     return res
 
 
@@ -798,6 +1207,7 @@ def main() -> None:
 
     kernels = kernel_phase(args.seed)
     kernels["tide_attention"] = tide_phase(args.seed)
+    kernels["ssd_scan"] = ssd_phase(args.seed)
     say(f"kernel phase: {json.dumps(kernels)}")
 
     if args.keys < 1 << 20:
@@ -822,22 +1232,43 @@ def main() -> None:
         f"requests, prefill {served['prefill_ms_per_request']:.1f} ms a "
         f"request, decode {served['decode_ms_per_step']:.2f} ms a step, "
         f"{served['tokens_per_s']:.1f} tokens/s")
+    mamba = mamba_phase(args.seed)
+    say(f"mamba2 path [{card}]: {json.dumps(mamba)}")
+    say(f"mamba2 path [{card}]: prefill {mamba['batch']} x "
+        f"{mamba['prompt_tokens']} tokens {mamba['prefill_ms']:.1f} ms, "
+        f"decode {mamba['decode_ms_per_step']:.2f} ms a step, "
+        f"{mamba['tokens_per_s']:.1f} tokens/s, one "
+        f"{mamba['long_prompt']['tokens']}-token prefill "
+        f"{mamba['long_prompt']['prefill_ms']:.1f} ms, peak "
+        f"{mamba['peak_bytes']} B")
+    griffin = griffin_phase(args.seed)
+    say(f"griffin path [{card}]: {json.dumps(griffin)}")
+    say(f"griffin path [{card}]: prefill {griffin['batch']} x "
+        f"{griffin['prompt_tokens']} tokens {griffin['prefill_ms']:.1f} ms, "
+        f"decode {griffin['decode_ms_per_step']:.2f} ms a step, "
+        f"{griffin['tokens_per_s']:.1f} tokens/s, first_live "
+        f"{griffin['first_live']}, peak {griffin['peak_bytes']} B")
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
+    by_path = {"storage": path["launches"], "llama3-8b": served["launches"],
+               "mamba2-1.3b": mamba["launches"],
+               "recurrentgemma-9b": griffin["launches"]}
     rows = []
-    for name, src, launches in (
-            ("bloom_check_ragged", "bloom_check.cu", path["launches"]),
-            ("bloom_check", "bloom_check.cu", path["launches"]),
-            ("optimistic_lookup", "optimistic_lookup.cu", path["launches"]),
-            ("tide_attention", "tide_attention.cu", served["launches"])):
+    for name, src in (("bloom_check_ragged", "bloom_check.cu"),
+                      ("bloom_check", "bloom_check.cu"),
+                      ("optimistic_lookup", "optimistic_lookup.cu"),
+                      ("tide_attention", "tide_attention.cu"),
+                      ("ssd_scan", "ssd_scan.cu")):
         k = kernels[name]
+        per_path = {p: c[name] for p, c in by_path.items() if c.get(name)}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": k["replaces"],
-            "on_main_path": name != "bloom_check",
-            "launches": launches[name],
+            "on_main_path": bool(per_path),
+            "launches": sum(per_path.values()),
+            "launches_by_path": per_path,
             "mismatches": k.get("mismatches"),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],

@@ -32,8 +32,8 @@ def main() -> None:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family not in T.DENSE_FAMILIES:
-        raise SystemExit(f"{args.arch}: the port's serving engine drives the "
-                         f"dense family (dense/vlm) so far")
+        raise SystemExit(f"{args.arch}: the port's serving engine serves the "
+                         f"KV-WAL families (dense, vlm), not {cfg.family}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to serve on the "
                          "host")

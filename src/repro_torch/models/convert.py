@@ -10,9 +10,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Leaves read in fp32 at every use (``rms_norm`` scales): casting them would
-# change their values, so ``cast_weights`` leaves them as they are.
-NORM_KEYS = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm"})
+# Leaves read in fp32 at every use: norm scales (``rms_norm`` widens them),
+# the SSM's ``A_log`` and ``dt_bias``, and the RG-LRU's gates, biases and
+# ``lam``.  Casting them would change their values, so ``cast_weights``
+# leaves them as they are.
+FP32_KEYS = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm",
+                       "norm", "A_log", "dt_bias",
+                       "w_r", "w_i", "b_r", "b_i", "lam"})
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -45,11 +49,13 @@ def cache_from_numpy(cache: dict, device="cpu") -> dict:
 
 def cast_weights(params: dict, dtype: torch.dtype, device=None) -> dict:
     """Matrix weights and embeddings cast once to ``dtype`` (the values each
-    use would cast them to), norm scales kept, everything moved to
-    ``device``."""
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else
-                v.to(device=device,
-                     dtype=v.dtype if k in NORM_KEYS else dtype)
-                for k, v in tree.items()}
+    use would cast them to), the leaves of ``FP32_KEYS`` kept, everything
+    moved to ``device``.  Descends dicts and lists (griffin's ``tail``)."""
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, key) for v in tree)
+        return tree.to(device=device,
+                       dtype=tree.dtype if key in FP32_KEYS else dtype)
     return walk(params)

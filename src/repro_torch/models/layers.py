@@ -8,8 +8,8 @@ Conventions, as in the JAX package's ``models/layers.py``:
   qk-norm and query chunking.
 
 Prefill and training attention is the plain einsum/softmax the JAX package
-computes outside any kernel; decode attention goes through the
-``tide_attention`` kernel instead (``models/serve.py``).
+computes outside any kernel, with griffin's sliding window; decode attention
+goes through the ``tide_attention`` kernel instead (``models/serve.py``).
 """
 from __future__ import annotations
 
@@ -92,14 +92,16 @@ def _attn_scores_block(q, k, v, mask, scale):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, chunk_q: int = 0) -> torch.Tensor:
+              causal: bool = True, window: int = 0,
+              chunk_q: int = 0) -> torch.Tensor:
     """Prefill multi-query attention, query and key positions from 0.
 
     q (B,Sq,H,hd); k,v (B,Skv,KH,*).  GQA is computed by grouping query
-    heads (no KV repetition).  Returns (B,Sq,H,vd).  The JAX package's
-    offsets, windows and per-sequence kv_len/kv_start serve decode and
-    griffin; decode goes through ``tide_attention`` here, and griffin is
-    not ported yet (ROADMAP A.11).
+    heads (no KV repetition).  Returns (B,Sq,H,vd).  With ``window > 0`` a
+    query at position i sees keys at positions > i - window (griffin's
+    local attention).  The JAX package's offsets and per-sequence
+    kv_len/kv_start serve decode, which goes through ``tide_attention``
+    here.
     """
     B, Sq, H, hd = q.shape
     KH = k.shape[2]
@@ -116,6 +118,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = torch.ones((1, 1, Skv), dtype=torch.bool, device=dev)
         if causal:
             m = m & (kv_pos <= q_positions[..., None])
+        if window > 0:
+            m = m & (kv_pos > q_positions[..., None] - window)
         return m.expand(B, q_positions.shape[-1], Skv)
 
     if chunk_q and Sq > chunk_q and Sq % chunk_q == 0:
@@ -150,13 +154,15 @@ def qkv_proj(params: dict, x: torch.Tensor, cfg, cos=None, sin=None):
     return q, k, v
 
 
-def gqa_block(params: dict, x: torch.Tensor, cfg, *, cos=None, sin=None):
+def gqa_block(params: dict, x: torch.Tensor, cfg, *, cos=None, sin=None,
+              window: int = 0):
     """Causal (G)QA self-attention: projection, attention, output.  Returns
     (output (B,S,d), the rotated (k, v)) — prefill writes the latter into
     the KV-WAL."""
     B, S, _ = x.shape
     q, k, v = qkv_proj(params, x, cfg, cos, sin)
-    o = attention(q, k, v, causal=cfg.causal, chunk_q=cfg.attn_chunk_q)
+    o = attention(q, k, v, causal=cfg.causal, window=window,
+                  chunk_q=cfg.attn_chunk_q)
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype), (k, v)
 
 

@@ -26,7 +26,7 @@ import torch
 from repro_torch.models import serve as serve_mod
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.convert import cast_weights
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.transformer import DENSE_FAMILIES, require_family
 
 
 @dataclasses.dataclass
@@ -64,7 +64,8 @@ class ServingEngine:
                 f"ServingEngine(device={device!r}) needs a CUDA card and none "
                 f"is available; pass device='cpu' to run the kernel's plain "
                 f"version on the host")
-        require_dense(cfg)
+        require_family(cfg, DENSE_FAMILIES,
+                       "the serving engine (KV-WAL families only)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = cast_weights(params, cfg.adtype, self.device)

@@ -30,6 +30,9 @@ def test_imports_neither_jax_nor_repro():
     assert "repro_torch.core.tidestore.db" in mods
     assert "repro_torch.kernels.bloom_check.kernel" in mods
     assert "repro_torch.kernels.tide_attention.kernel" in mods
+    assert "repro_torch.kernels.ssd_scan.kernel" in mods
+    assert "repro_torch.models.ssm" in mods
+    assert "repro_torch.models.griffin" in mods
     assert "repro_torch.models.serve" in mods
     assert "repro_torch.serving.engine" in mods
     code = (

@@ -8,9 +8,12 @@ with the card:
 
 The Bloom probe and the lookup are integer, so kernel and plain version
 must be equal; tide_attention is held at the tolerances of the JAX
-package's ``TestTideAttention`` (2e-5 in fp32, 2e-2 in bf16).  The input
-builders here are shared with ``test_torch_kernels.py`` and
-``test_torch_attention.py``.
+package's ``TestTideAttention`` (2e-5 in fp32, 2e-2 in bf16); ssd_scan at
+``TestSsdScan``'s 3e-4 in fp32 and, in bf16, by its mean error against the
+plain version run in fp32, which may exceed the plain version's own bf16
+mean error by at most a quarter.  The input builders here are shared with
+``test_torch_kernels.py``, ``test_torch_attention.py`` and
+``test_torch_ssm.py``.
 """
 import numpy as np
 import pytest
@@ -23,6 +26,9 @@ from repro_torch.kernels.bloom_check.ref import (bloom_check_ragged_ref,
 from repro_torch.kernels.optimistic_lookup import kernel as lookup_kernel
 from repro_torch.kernels.optimistic_lookup import ops as lookup_ops
 from repro_torch.kernels.optimistic_lookup.ref import optimistic_lookup_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_scan as ssd_scan_ref
 from repro_torch.kernels.tide_attention import kernel as tide_kernel
 from repro_torch.kernels.tide_attention.ops import decode_attention
 from repro_torch.kernels.tide_attention.ref import tide_attention_ref
@@ -114,6 +120,21 @@ def _tide_case(seed, B, H, KH, dk, dv, NB, blk, lens, live):
     table = np.stack([rng.permutation(NB) for _ in range(B)]).astype(np.int32)
     return (q, ak, av, table, np.asarray(lens, np.int32),
             np.asarray(live, np.int32))
+
+
+def _ssd_case(seed, b, l, h, p, n, init=False):
+    """SSD inputs as float32 numpy, drawn as ``TestSsdScan`` draws them:
+    x, dt (after a softplus), A (negative), Bm, Cm and, with ``init``, an
+    initial state (else None)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, l, h)), 0).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    Bm = (rng.standard_normal((b, l, n)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((b, l, n)) * 0.5).astype(np.float32)
+    s0 = (rng.standard_normal((b, h, p, n)) * 0.5).astype(np.float32) \
+        if init else None
+    return x, dt, A, Bm, Cm, s0
 
 
 # ------------------------------------------------------------- on the card
@@ -263,3 +284,67 @@ def test_tide_attention_rejects_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="multiples"):
         odd = [a[..., :6].contiguous() for a in args[:3]]
         tide_kernel.tide_attention(*odd, *args[3:])
+
+
+def _ssd_on_card(case, card, dtype):
+    """(x, dt, A, Bm, Cm, init) on the card: x, Bm, Cm in ``dtype``, the
+    rest in fp32."""
+    x, dt, A, Bm, Cm, s0 = case
+    return ([_t(x).to(card, dtype), _t(dt).to(card), _t(A).to(card),
+             _t(Bm).to(card, dtype), _t(Cm).to(card, dtype)],
+            None if s0 is None else _t(s0).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n,c,init", [
+    (8, 2048, 64, 64, 128, 256, False),   # Mamba-2-1.3B prefill
+    (2, 1000, 64, 64, 128, 256, True),    # ragged: the padding path
+    (2, 100, 64, 64, 128, 256, False),    # l < chunk: c = l
+    (2, 64, 8, 16, 32, 16, True),         # TestSsdScan's shapes
+    (1, 128, 4, 64, 128, 32, False),
+    (3, 48, 8, 16, 16, 16, False),
+    (2, 40, 4, 16, 32, 16, False),
+])
+def test_ssd_scan_kernel_on_card(card, b, l, h, p, n, c, init):
+    case = _ssd_case(l + h, b, l, h, p, n, init)
+    args, s0 = _ssd_on_card(case, card, torch.float32)
+    before = ssd_kernel.launches["ssd_scan"]
+    y, st = ssd(*args, chunk=c, init_state=s0)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches["ssd_scan"] == before + 1
+    assert y.shape == (b, l, h, p) and st.dtype == torch.float32
+    yr, sr = ssd_scan_ref(*args, chunk=c, init_state=s0)
+    torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(st, sr, rtol=3e-4, atol=3e-4)
+
+    # bf16: the kernel widens C and B before their product, the plain
+    # version (as the JAX model) rounds C.B^T to bf16 first, so each y is
+    # held against the plain version in fp32 on the same rounded inputs.
+    # The state is fp32 from those inputs in all three: fp32 tolerance.
+    bargs, _ = _ssd_on_card(case, card, torch.bfloat16)
+    yk, sk = ssd(*bargs, chunk=c, init_state=s0)
+    yp, _ = ssd_scan_ref(*bargs, chunk=c, init_state=s0)
+    y32, s32 = ssd_scan_ref(*[a.float() for a in bargs], chunk=c,
+                            init_state=s0)
+    assert yk.dtype == torch.bfloat16 and torch.isfinite(yk.float()).all()
+    err = (yk.float() - y32).abs().mean()
+    assert err <= 1.25 * (yp.float() - y32).abs().mean(), err
+    torch.testing.assert_close(sk, s32, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_rejects_what_it_cannot_take(card):
+    args, _ = _ssd_on_card(_ssd_case(1, 1, 32, 4, 16, 16), card,
+                           torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_kernel.ssd_scan(*args, chunk=24)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(args[0].half(), *args[1:], chunk=16)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(*args[:3], args[3].bfloat16(), args[4],
+                            chunk=16)
+    with pytest.raises(ValueError, match="card"):
+        ssd_kernel.ssd_scan(*[a.cpu() for a in args], chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.ssd_scan(args[0].transpose(1, 2).contiguous()
+                            .transpose(1, 2), *args[1:], chunk=16)

@@ -61,7 +61,8 @@ def test_configs_match_jax():
             assert t.pdtype == getattr(torch, j.param_dtype)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-0.6b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
 def test_init_params_matches_jax_layout(arch):
     cfg = get_config(arch, smoke=True)
     gen = torch.Generator().manual_seed(0)
@@ -225,8 +226,11 @@ def test_engine_temperature_sampling_follows_its_seed():
 
 
 def test_engine_refuses_other_families():
+    """The engine splices KV-WAL arenas only, as the JAX engine does: it
+    refuses the ssm family, which the model stack now runs."""
     cfg = get_config("mamba2-1.3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError,
+                       match="KV-WAL families only.*dense, vlm.*A.11"):
         ServingEngine(cfg, {}, device="cpu")
 
 
@@ -245,7 +249,7 @@ def test_launcher_serves_on_the_cpu():
     assert "[serve] llama3-8b on cpu: 3 requests, 12 tokens" in res.stdout
     refused = _launch("--arch", "mamba2-1.3b", "--smoke", "--device", "cpu")
     assert refused.returncode != 0
-    assert "dense family" in refused.stderr
+    assert "KV-WAL families (dense, vlm), not ssm" in refused.stderr
 
 
 @pytest.mark.parametrize("causal,chunk_q", [
