@@ -16,9 +16,9 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes its main path gives it: the storage kernels bit for bit,
    with the u32 wraparound and budget-exhaustion cases; tide_attention at
-   Llama-3-8B decode shapes in bf16 (2e-2, and 4e-3 absolute) and fp32
-   (2e-5), with a pruned row, a sliding window and two empty rows that must
-   be exactly 0; ssd_scan at Mamba-2-1.3B widths (8 x 2048, a ragged 1000
+   Llama-3-8B and RecurrentGemma-9B decode shapes in bf16 (2e-2, and 4e-3
+   absolute) and fp32 (2e-5), with a pruned row, sliding windows and two
+   empty rows that must be exactly 0; ssd_scan at Mamba-2-1.3B widths (8 x 2048, a ragged 1000
    with an initial state, 100 < chunk) in fp32 (3e-4) and bf16 (mean-error
    rule).  Times from CUDA events (median of 30) beside the plain version,
    the library call where one exists, and the least time the card allows
@@ -35,8 +35,8 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    random weights from a seeded generator, 8 slots of 2048 positions, 16
    greedy requests of 16-1024 prompt tokens and 32 new tokens each.  Every
    request must retire with 32 tokens in the vocabulary, every decode step
-   must launch tide_attention once per layer, and the recycled segments must
-   equal the blocks the requests used.  Then one decode step runs under
+   must launch tide_attention (split and combine) once per layer, and the
+   recycled segments must equal the blocks the requests used.  Then one decode step runs under
    torch.profiler, and one decode step from one cache goes once through the
    kernel and once through its plain version: at bf16 over 32 layers, and
    in fp32 over 4 layers at 2e-4.
@@ -62,6 +62,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -369,28 +370,23 @@ def _close(got, want, tol: float) -> float:
 
 # ---------------------------------------------------- kernel D: attention
 
-def tide_phase(seed: int, device: str = "cuda") -> dict:
-    """tide_attention at Llama-3-8B decode shapes (B=8 slots, 32 query heads
-    over 8 kv-heads, head_dim 128, blocks of 128, 16 blocks = 2048
-    positions), random permuted tables, lengths 1-2048, row 0 pruned below
-    position 512."""
+def _tide_shape(rng, dev, B, H, KH, d, NB, blk, lens, live, windows,
+                timed_window: int, empty_rows: bool) -> dict:
+    """tide_attention at one decode shape: bf16 (rtol 2e-2 and 4e-3
+    absolute) and fp32 (2e-5) against the plain version at each window; with
+    ``empty_rows``, two empty rows that must be exactly 0; then cold
+    CUDA-event medians of kernel, plain version and SDPA at ``timed_window``
+    beside the byte bound of this run's live positions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import kvwal
     from repro_torch.kernels.tide_attention import kernel as tk
     from repro_torch.kernels.tide_attention.ref import (live_mask,
                                                         tide_attention_ref)
-    dev = torch.device(device)
-    rng = np.random.default_rng(seed + 4)
-    B, H, KH, d, NB, blk = 8, 32, 8, 128, 16, 128
-    lens = rng.integers(1, NB * blk + 1, B)
-    lens[0] = max(lens[0], 1024)
-    live = np.zeros(B, np.int64)
-    live[0] = 512
     host = [rng.standard_normal(shape, dtype=np.float32) for shape in
             ((B, H, d), (B, NB, blk, KH, d), (B, NB, blk, KH, d))]
     table = np.stack([rng.permutation(NB) for _ in range(B)])
-    ints = [torch.from_numpy(a.astype(np.int32)).to(dev)
+    ints = [torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
             for a in (table, lens, live)]
     cases = {}
     # bf16 is held at rtol = atol = 2e-2 (the JAX package's kernel tests)
@@ -399,7 +395,7 @@ def tide_phase(seed: int, device: str = "cuda") -> dict:
     for dtype, tol, atol in ((torch.bfloat16, 2e-2, 4e-3),
                              (torch.float32, 2e-5, 2e-5)):
         args = [torch.from_numpy(a).to(dev, dtype) for a in host] + ints
-        for window in (0, 300):
+        for window in windows:
             got = tk.tide_attention(*args, window=window)
             want = tide_attention_ref(*args, window=window)
             err = _close(got, want, tol)
@@ -407,20 +403,23 @@ def tide_phase(seed: int, device: str = "cuda") -> dict:
                 fail(f"tide_attention {dtype} window={window}: max |diff| "
                      f"{err} beyond {atol}")
             cases[f"{dtype}".split(".")[1] + f" window={window}"] = err
-        # Two empty rows beside a live one: seq_len = 0, and every position
-        # below first_live.  Both must be exactly 0.
-        e_args = [a[:3].clone() for a in args[:3]] + [
-            ints[0][:3].clone(),
-            torch.tensor([0, 300, 700], dtype=torch.int32, device=dev),
-            torch.tensor([0, 384, 128], dtype=torch.int32, device=dev)]
-        got = tk.tide_attention(*e_args)
-        if bool(got[:2].any()):
-            fail(f"tide_attention {dtype}: an empty row is not 0")
-        _close(got[2], tide_attention_ref(*e_args)[2], tol)
+        if empty_rows:
+            # Two empty rows beside a live one: seq_len = 0, and every
+            # position below first_live.  Both must be exactly 0.
+            e_args = [a[:3].clone() for a in args[:3]] + [
+                ints[0][:3].clone(),
+                torch.tensor([0, 300, 700], dtype=torch.int32, device=dev),
+                torch.tensor([0, 384, 128], dtype=torch.int32, device=dev)]
+            got = tk.tide_attention(*e_args)
+            if bool(got[:2].any()):
+                fail(f"tide_attention {dtype}: an empty row is not 0")
+            _close(got[2], tide_attention_ref(*e_args)[2], tol)
 
     args = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in host] + ints
     n_pos = NB * blk
-    live_pos = int(sum(min(n, n_pos) - lv for n, lv in zip(lens, live)))
+    w = timed_window
+    mask = live_mask(args[4], args[5], n_pos, w)
+    live_pos = int(mask.sum())
     G = H // KH
     nbytes = (live_pos * KH * 2 * d * 2          # live K and V rows, bf16
               + 2 * B * H * d * 2                # q in, out
@@ -430,23 +429,56 @@ def tide_phase(seed: int, device: str = "cuda") -> dict:
     # (B, KH, S, d) copies beforehand, with the same boolean mask.
     kg = kvwal.gather(args[1], args[3]).permute(0, 2, 1, 3).contiguous()
     vg = kvwal.gather(args[2], args[3]).permute(0, 2, 1, 3).contiguous()
-    mask = live_mask(args[4], args[5], n_pos)[:, None, None, :]
     qs = args[0][:, :, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
-                                                  enable_gqa=True)
-    lib_err = (sdpa()[:, :, 0].float()
-               - tide_attention_ref(*args).float()).abs().max()
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask[:, None, None, :], enable_gqa=True)
+    lib_err = (sdpa()[:, :, 0].float() - tide_attention_ref(
+        *args, window=w).float()).abs().max()
+    S, R = tk.plan(*args[:3], w)
+    run = lambda: tk.tide_attention(*args, window=w)
+    ms, warm_ms = time_ms(run, cold=True), time_ms(run)
+    # Device time a call of each of D's two kernels, over 20 warm calls.
+    prof = device_profile(lambda: [run() for _ in range(20)], "tide")
     return dict(
-        replaces="src/repro/kernels/tide_attention/kernel.py:79",
-        shape=f"B={B} H={H} KH={KH} d={d} blk={blk} NB={NB} bf16, "
-              f"{live_pos} live positions",
-        max_abs_err=cases["bfloat16 window=0"], cases=cases,
-        ms=time_ms(lambda: tk.tide_attention(*args), cold=True),
-        plain_ms=time_ms(lambda: tide_attention_ref(*args), cold=True),
-        bound_ms=t_ms, bound_by=t_by,
+        shape=f"B={B} H={H} KH={KH} d={d} blk={blk} NB={NB} window={w} "
+              f"bf16, {live_pos} live positions",
+        splits=S, tile=R, max_abs_err=cases[f"bfloat16 window={w}"],
+        cases=cases,
+        ms=ms, warm_ms=warm_ms,
+        device_us_by_kernel={k: t * 1e3 / 20 for k, t in
+                             prof["device_ms_by_op"].items() if "tide" in k},
+        plain_ms=time_ms(lambda: tide_attention_ref(*args, window=w),
+                         cold=True),
+        bound_ms=t_ms, bound_by=t_by, bytes=nbytes,
         library_ms=time_ms(sdpa, cold=True),
         library="torch scaled_dot_product_attention (enable_gqa) on K/V "
                 f"gathered beforehand; max |diff| to plain {float(lib_err)}")
+
+
+def tide_phase(seed: int, device: str = "cuda") -> dict:
+    """tide_attention at the two decode shapes that use it.  Llama-3-8B:
+    B=8 slots, 32 query heads over 8 kv-heads, head_dim 128, blocks of 128,
+    16 blocks = 2048 positions, random permuted tables, lengths 1-2048, row
+    0 pruned below position 512, windows 0 and 300, and two empty rows.
+    RecurrentGemma-9B: B=4, 16 query heads over 1 kv-head of 256, 32 blocks
+    of 128, window 2048, first_live 512, seq_len 2624 (the griffin path's
+    last decode step).  The Llama shape's numbers head the row; the other
+    shape's sit under ``recurrentgemma``."""
+    import torch
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 4)
+    B, NB, blk = 8, 16, 128
+    lens = rng.integers(1, NB * blk + 1, B)
+    lens[0] = max(lens[0], 1024)
+    live = np.zeros(B, np.int64)
+    live[0] = 512
+    llama = _tide_shape(rng, dev, B, 32, 8, 128, NB, blk, lens, live,
+                        (0, 300), 0, empty_rows=True)
+    griffin = _tide_shape(rng, dev, 4, 16, 1, 256, 32, 128, [2624] * 4,
+                          [512] * 4, (2048,), 2048, empty_rows=False)
+    return dict(llama, replaces="src/repro/kernels/tide_attention/kernel.py:79",
+                max_abs_err=max(llama["max_abs_err"], griffin["max_abs_err"]),
+                recurrentgemma=griffin)
 
 
 # ------------------------------------------------------------ serving path
@@ -1164,6 +1196,18 @@ def profile_reads(db, probe, gkeys) -> dict:
 
 # ------------------------------------------------------------------- main
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name and raw template arguments in a mangled symbol,
+    e.g. ``tide_split_kernel<13__nv_bfloat16Li64ELi128E>``."""
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        end = m.end() + int(m.group(1))
+        if mangled[m.end():end].endswith("kernel"):
+            args = mangled[end:].split("Ev")[0]
+            return mangled[m.end():end] + (f"<{args[1:]}>" if
+                                           args.startswith("I") else "")
+    return mangled
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1202,8 +1246,10 @@ def main() -> None:
         f"({', '.join(build.SOURCES)}) into {build.build_dir()}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                say(f"  {name}: {_kernel_name(line.split()[-1])}")
+            elif "registers" in line or "spill" in line:
+                say(f"  {name}:   {line.strip()}")
 
     kernels = kernel_phase(args.seed)
     kernels["tide_attention"] = tide_phase(args.seed)
@@ -1254,6 +1300,13 @@ def main() -> None:
     by_path = {"storage": path["launches"], "llama3-8b": served["launches"],
                "mamba2-1.3b": mamba["launches"],
                "recurrentgemma-9b": griffin["launches"]}
+    # Both decode paths split every row (S = 4 and 33 on 132 SMs), so each
+    # call of D runs its combine pass too.
+    for p in ("llama3-8b", "recurrentgemma-9b"):
+        c = by_path[p]
+        if c["tide_attention_combine"] != c["tide_attention"]:
+            fail(f"{p}: {c['tide_attention']} calls of tide_attention ran "
+                 f"{c['tide_attention_combine']} combine passes")
     rows = []
     for name, src in (("bloom_check_ragged", "bloom_check.cu"),
                       ("bloom_check", "bloom_check.cu"),
@@ -1275,6 +1328,14 @@ def main() -> None:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "shape": k["shape"],
             "card": card})
+        if name == "tide_attention":
+            rows[-1]["combine_launches"] = sum(
+                c["tide_attention_combine"] for c in by_path.values())
+            rows[-1]["splits"] = k["splits"]
+            rows[-1]["recurrentgemma"] = {
+                key: k["recurrentgemma"][key] for key in (
+                    "shape", "splits", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

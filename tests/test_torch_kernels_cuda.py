@@ -228,14 +228,31 @@ def _tide_on_card(case, card, dtype):
             + [_t(a).to(card) for a in (table, lens, live)])
 
 
+def _tide_launch(args, window):
+    """decode_attention through the kernel; checks that the split pass ran
+    once and the combine pass once exactly when the plan splits."""
+    S, _ = tide_kernel.plan(*args[:3], window)
+    before = dict(tide_kernel.launches)
+    got = decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert tide_kernel.launches["tide_attention"] == \
+        before["tide_attention"] + 1
+    assert tide_kernel.launches["tide_attention_combine"] == \
+        before["tide_attention_combine"] + (S > 1)
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,KH,dk,dv,NB,blk,window", [
     (8, 32, 8, 128, 128, 16, 128, 0),     # Llama-3-8B decode
     (8, 32, 8, 128, 128, 16, 128, 300),   # ... with a sliding window
+    (4, 16, 1, 256, 256, 32, 128, 2048),  # RecurrentGemma-9B decode
     (2, 8, 4, 64, 64, 4, 32, 0),          # GQA
     (1, 4, 1, 128, 128, 3, 128, 0),       # MQA
+    (1, 32, 1, 64, 64, 3, 32, 0),         # G = 32: two CTAs a kv-head
+    (2, 8, 2, 96, 96, 3, 64, 0),          # phi3-mini's head dim of 96
     (3, 4, 4, 32, 32, 2, 16, 0),          # MHA
     (2, 16, 2, 64, 32, 5, 64, 48),        # dk != dv, window
 ])
@@ -246,12 +263,71 @@ def test_tide_attention_kernel_on_card(card, dtype, tol, B, H, KH, dk, dv,
     live = np.where(np.arange(B) == 0, lens // 2, 0)    # one pruned row
     args = _tide_on_card(_tide_case(B + H, B, H, KH, dk, dv, NB, blk, lens,
                                     live), card, dtype)
-    before = tide_kernel.launches["tide_attention"]
-    got = decode_attention(*args, window=window)
-    torch.cuda.synchronize()
-    assert tide_kernel.launches["tide_attention"] == before + 1
+    got = _tide_launch(args, window)
     assert got.dtype == dtype and got.shape == (B, H, dv)
     want = tide_attention_ref(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_tide_attention_empty_slices_on_card(card, dtype, tol):
+    """RecurrentGemma's shape splits each row 33 ways; rows of a few tiles
+    leave most slices empty, and a row with no live position leaves all."""
+    lens, live = [10, 70, 2624, 0], [0, 33, 512, 0]
+    args = _tide_on_card(_tide_case(17, 4, 16, 1, 256, 256, 32, 128, lens,
+                                    live), card, dtype)
+    S, R = tide_kernel.plan(*args[:3], 2048)
+    assert S > -(-70 // R) + 1
+    got = _tide_launch(args, 2048)
+    assert not got[3].any()
+    want = tide_attention_ref(*args, window=2048)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _dead_rows(case, window):
+    """(B, NB, blk) bool: the arena rows that hold no live position — pruned,
+    at or past seq_len, outside the window, and whole blocks the live range
+    does not reach."""
+    _, ak, _, table, lens, live = case
+    B, NB, blk = ak.shape[:3]
+    pos = np.arange(NB * blk)[None]
+    alive = (pos >= live[:, None]) & (pos < lens[:, None])
+    if window > 0:
+        alive &= pos > lens[:, None] - 1 - window
+    dead = np.ones((B, NB, blk), bool)
+    for b in range(B):
+        dead[b, table[b]] = ~alive[b].reshape(NB, blk)
+    return dead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,lens,live,window", [
+    ((8, 32, 8, 128, 128, 16, 128), [2048, 1500, 700, 1, 129, 1000, 64, 999],
+     [512, 0, 640, 0, 0, 100, 0, 0], 0),
+    ((4, 16, 1, 256, 256, 32, 128), [2624, 2624, 100, 3000],
+     [512, 512, 0, 640], 2048),
+    ((2, 16, 2, 64, 32, 5, 64), [300, 200], [70, 0], 48),
+])
+def test_tide_attention_never_reads_dead_rows(card, dtype, tol, shape, lens,
+                                              live, window):
+    """Every dead arena row holds NaN: the output must be finite and equal
+    the plain version on the same arena with those rows zeroed."""
+    B, H, KH, dk, dv, NB, blk = shape
+    case = _tide_case(31, B, H, KH, dk, dv, NB, blk, lens, live)
+    dead = _dead_rows(case, window)
+    q, ak, av, table, ln, lv = case
+    clean = (q, np.where(dead[..., None, None], 0, ak),
+             np.where(dead[..., None, None], 0, av), table, ln, lv)
+    poisoned = (q, np.where(dead[..., None, None], np.nan, ak),
+                np.where(dead[..., None, None], np.nan, av), table, ln, lv)
+    got = _tide_launch(_tide_on_card(poisoned, card, dtype), window)
+    assert torch.isfinite(got.float()).all()
+    want = tide_attention_ref(*_tide_on_card(clean, card, dtype),
+                              window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
@@ -284,6 +360,9 @@ def test_tide_attention_rejects_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="multiples"):
         odd = [a[..., :6].contiguous() for a in args[:3]]
         tide_kernel.tide_attention(*odd, *args[3:])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tide_kernel.tide_attention(*[a[..., :40].bfloat16().contiguous()
+                                     for a in args[:3]], *args[3:])
 
 
 def _ssd_on_card(case, card, dtype):
