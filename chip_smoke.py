@@ -18,11 +18,16 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    with the u32 wraparound and budget-exhaustion cases; tide_attention at
    Llama-3-8B and RecurrentGemma-9B decode shapes in bf16 (2e-2, and 4e-3
    absolute) and fp32 (2e-5), with a pruned row, sliding windows and two
-   empty rows that must be exactly 0; ssd_scan at Mamba-2-1.3B widths (8 x 2048, a ragged 1000
-   with an initial state, 100 < chunk) in fp32 (3e-4) and bf16 (mean-error
-   rule).  Times from CUDA events (median of 30) beside the plain version,
-   the library call where one exists, and the least time the card allows
-   for this run's data (its memory rate, or its fp32 rate for ssd_scan).
+   empty rows that must be exactly 0, and the Llama shape in KV blocks of 8
+   and 24 positions (tiles that span blocks); ssd_scan at Mamba-2-1.3B
+   widths (8 x 2048, a ragged 1000 with an initial state, 100 < chunk) in
+   fp32 (3e-4) and bf16 (mean-error rule, and within one bf16 ulp of the
+   kernel's rounding mirrored in plain ops).  Times from CUDA events (median
+   of 30) beside the plain version, the library call where one exists, and
+   the least time the card allows for this run's data (its memory rate or
+   its peak rate for the operations' type); ssd_scan also at one
+   16384-token prompt, with the device time of each of its three passes
+   and its fp32-rate bound beside its tensor-core bound.
 3. The storage path, through the engine's public API with ``device="cuda"``:
    ``put_many`` of N uniform 32-byte keys (sha256) with 1 KiB values in
    batches of 4096, ``flush``, ``close``, reopen (cells UNLOADED, nothing
@@ -41,8 +46,9 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    kernel and once through its plain version: at bf16 over 32 layers, and
    in fp32 over 4 layers at 2e-4.
 5. Mamba-2-1.3B at full width and depth (bf16, random weights):
-   ``serve.prefill`` of 8 x 2048 tokens and 32 greedy decode steps (ssd_scan
-   once a layer in prefill, never in decode), one 16384-token prefill, the
+   ``serve.prefill`` of 8 x 2048 tokens and 32 greedy decode steps (each of
+   ssd_scan's passes once a layer in prefill, never in decode), one
+   16384-token prefill, the
    profiles of a decode step and a prefill, and one prefill through the
    kernel and through its plain version (bf16 over 48 layers by the
    mean-error rule, fp32 over 4 layers at 2e-4).
@@ -52,6 +58,9 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    attention block a step, window 2048, ``first_live`` ending at 512), the
    profile of a decode step, and one decode step through the kernel and
    through its plain version.
+7. RecurrentGemma's SMOKE config on the card (fp32, KV blocks of 8
+   positions, window 16): the same path, its decode step held against the
+   plain version at 2e-4.
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -455,6 +464,41 @@ def _tide_shape(rng, dev, B, H, KH, d, NB, blk, lens, live, windows,
                 f"gathered beforehand; max |diff| to plain {float(lib_err)}")
 
 
+def _tide_any_block(rng, dev) -> dict:
+    """tide_attention where the tile does not divide the KV block, so tiles
+    span blocks: the Llama-3-8B decode shape cut into blocks of 8 (256 of
+    them) and of 24 (86), with a pruned row, at the bf16 (2e-2, and 4e-3
+    absolute) and fp32 (2e-5) tolerances of the main shapes."""
+    import torch
+    from repro_torch.kernels.tide_attention import kernel as tk
+    from repro_torch.kernels.tide_attention.ref import tide_attention_ref
+    B, H, KH, d = 8, 32, 8, 128
+    out = {}
+    for blk, NB, window in ((8, 256, 0), (24, 86, 300)):
+        lens = rng.integers(1, NB * blk + 1, B)
+        live = np.zeros(B, np.int64)
+        live[0] = lens[0] // 3
+        host = [rng.standard_normal(shape, dtype=np.float32) for shape in
+                ((B, H, d), (B, NB, blk, KH, d), (B, NB, blk, KH, d))]
+        table = np.stack([rng.permutation(NB) for _ in range(B)])
+        ints = [torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
+                for a in (table, lens, live)]
+        case = {}
+        for dtype, tol, atol in ((torch.bfloat16, 2e-2, 4e-3),
+                                 (torch.float32, 2e-5, 2e-5)):
+            args = [torch.from_numpy(a).to(dev, dtype) for a in host] + ints
+            err = _close(tk.tide_attention(*args, window=window),
+                         tide_attention_ref(*args, window=window), tol)
+            if err > atol:
+                fail(f"tide_attention {dtype} blk={blk}: max |diff| {err} "
+                     f"beyond {atol}")
+            case[str(dtype).split(".")[1]] = err
+        S, R = tk.plan(*args[:3], window)
+        out[f"blk={blk}"] = dict(NB=NB, window=window, splits=S, tile=R,
+                                 max_abs_err=case)
+    return out
+
+
 def tide_phase(seed: int, device: str = "cuda") -> dict:
     """tide_attention at the two decode shapes that use it.  Llama-3-8B:
     B=8 slots, 32 query heads over 8 kv-heads, head_dim 128, blocks of 128,
@@ -463,7 +507,8 @@ def tide_phase(seed: int, device: str = "cuda") -> dict:
     RecurrentGemma-9B: B=4, 16 query heads over 1 kv-head of 256, 32 blocks
     of 128, window 2048, first_live 512, seq_len 2624 (the griffin path's
     last decode step).  The Llama shape's numbers head the row; the other
-    shape's sit under ``recurrentgemma``."""
+    shape's sit under ``recurrentgemma``, and the Llama shape in blocks of
+    8 and 24 positions under ``any_block``."""
     import torch
     dev = torch.device(device)
     rng = np.random.default_rng(seed + 4)
@@ -478,7 +523,7 @@ def tide_phase(seed: int, device: str = "cuda") -> dict:
                           [512] * 4, (2048,), 2048, empty_rows=False)
     return dict(llama, replaces="src/repro/kernels/tide_attention/kernel.py:79",
                 max_abs_err=max(llama["max_abs_err"], griffin["max_abs_err"]),
-                recurrentgemma=griffin)
+                recurrentgemma=griffin, any_block=_tide_any_block(rng, dev))
 
 
 # ------------------------------------------------------------ serving path
@@ -779,17 +824,43 @@ def ssd_cost(b, l, h, p, n, c) -> tuple[float, float, float]:
     return nbytes, tc_flops, fp32_flops
 
 
+def ssd_bounds(b, l, h, p, n, c) -> dict:
+    """E's two bounds, each the larger of its operations' time and the
+    bytes' time.  ``fp32_bound_ms``: the terms with an fp32 operand at the
+    fp32 rate beside the bf16 C·Bᵀ on tensor cores (the slower binds), the
+    bound while those terms could not run on tensor cores.  ``bound_ms``:
+    every product at the bf16 tensor-core rate, which holds since the
+    kernel's split-bf16 products keep the card checks' tolerances."""
+    nbytes, tc_flops, fp32_flops = ssd_cost(b, l, h, p, n, c)
+    old = max(bound(nbytes, fp32_flops),
+              bound(nbytes, tc_flops, BF16_OPS_PER_S))
+    new = bound(nbytes, tc_flops + fp32_flops, BF16_OPS_PER_S)
+    return dict(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                fp32_flops=fp32_flops,
+                fp32_ms=fp32_flops / FP32_OPS_PER_S * 1e3,
+                tensor_core_flops=tc_flops,
+                all_flops_tensor_core_ms=(tc_flops + fp32_flops)
+                / BF16_OPS_PER_S * 1e3,
+                fp32_bound_ms=old[0], fp32_bound_by=old[1],
+                bound_ms=new[0], bound_by=new[1])
+
+
 def ssd_phase(seed: int, device: str = "cuda") -> dict:
     """ssd_scan at Mamba-2-1.3B widths (64 heads of 64, d_state 128, chunk
     256): the prefill shape (8 x 2048), a ragged length (1000, the padding
     path) with an initial state, and l = 100 < chunk.  fp32 against the
     plain version at 3e-4; bf16 by the mean-error rule against the plain
-    version run in fp32.  Times in bf16 at the prefill shape and at one
-    16384-token prompt."""
+    version run in fp32, and element by element against the kernel's
+    rounding mirrored in plain ops (``ssd_scan_passes(split=True)``) within
+    one bf16 ulp and 2^-10 of the mean |y|.  Then, in bf16 at the prefill
+    shape and at one 16384-token prompt: cold and warm CUDA-event medians,
+    the device time of each pass, the plain version, what a call allocates,
+    and the fp32 and tensor-core bounds."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan as ssd_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_passes
     dev = torch.device(device)
     rng = np.random.default_rng(seed + 5)
     h, p, n, c = 64, 64, 128, 256
@@ -811,11 +882,21 @@ def ssd_phase(seed: int, device: str = "cuda") -> dict:
         # inputs in both, so it is held at the fp32 tolerance.
         mk = float((got[0].float() - want[0]).abs().mean())
         mp = float((plain[0].float() - want[0]).abs().mean())
+        # Beyond the split mirror's tolerance: > 0 fails.
+        ym = ssd_scan_passes(xb, dt, A, Bb, Cb, chunk=c, init_state=s0,
+                             split=True)[0].float()
+        beyond = float(((got[0].float() - ym).abs() - 2.0 ** -7 * ym.abs()
+                        - 2.0 ** -10 * ym.abs().mean()).max())
+        del ym
         case = {"fp32_max_abs_err": err, "bf16_y_mean_err": mk,
                 "bf16_y_plain_mean_err": mp,
                 "bf16_y_max_abs_diff_to_plain": float(
                     (got[0].float() - plain[0].float()).abs().max()),
-                "bf16_state_max_abs_err": _close(got[1], want[1], 3e-4)}
+                "bf16_state_max_abs_err": _close(got[1], want[1], 3e-4),
+                "bf16_y_beyond_split_mirror": beyond}
+        if beyond > 0:
+            fail(f"ssd_scan bf16 b={b} l={l}: y {beyond} beyond one bf16 "
+                 f"ulp and 2^-10 of the mean |y| of the split mirror")
         if not torch.isfinite(got[0].float()).all() or mk > 1.25 * mp:
             fail(f"ssd_scan bf16 b={b} l={l}: y mean error {mk} beyond "
                  f"1.25 x the plain version's {mp}")
@@ -828,26 +909,34 @@ def ssd_phase(seed: int, device: str = "cuda") -> dict:
         x, dt, A, Bm, Cm, _ = _ssd_inputs(rng, b, l, h, p, n, dev)
         xb, Bb, Cb = (a.bfloat16() for a in (x, Bm, Cm))
         del x, Bm, Cm
-        nbytes, tc_flops, fp32_flops = ssd_cost(b, l, h, p, n, c)
-        # Tensor cores and fp32 pipes run side by side: the slower binds.
-        b_ms, b_by = max(bound(nbytes, fp32_flops),
-                         bound(nbytes, tc_flops, BF16_OPS_PER_S))
+        run = lambda: sk.ssd_scan(xb, dt, A, Bb, Cb, chunk=c)
+        # What one call allocates beyond its inputs: y, the final state and
+        # the passes' scratch.
+        _free(device)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - base
+        # Device time a call of each pass, over 10 warm calls.
+        prof = device_profile(lambda: [run() for _ in range(10)], "ssd")
         timing[f"b={b} l={l}"] = dict(
-            ms=time_ms(lambda: sk.ssd_scan(xb, dt, A, Bb, Cb, chunk=c)),
+            ms=time_ms(run, cold=True), warm_ms=time_ms(run),
+            device_us_by_pass={k: t * 1e3 / 10 for k, t in
+                               prof["device_ms_by_op"].items() if "ssd" in k},
             plain_ms=time_ms(lambda: ssd_ref(xb, dt, A, Bb, Cb, chunk=c)),
-            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            fp32_flops=fp32_flops, fp32_ms=fp32_flops / FP32_OPS_PER_S * 1e3,
-            tensor_core_flops=tc_flops,
-            tensor_core_ms=tc_flops / BF16_OPS_PER_S * 1e3)
+            transient_bytes=transient, **ssd_bounds(b, l, h, p, n, c))
+        say(f"ssd_scan b={b} l={l}: {json.dumps(timing[f'b={b} l={l}'])}")
         del xb, Bb, Cb, dt, A
+        _free(device)
     main = timing["b=8 l=2048"]
     return dict(
         replaces="src/repro/kernels/ssd_scan/kernel.py:79",
         shape=f"b=8 l=2048 h={h} p={p} n={n} chunk={c}, bf16 x/B/C/y",
         max_abs_err=worst, cases=cases, ms=main["ms"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=None,
+        warm_ms=main["warm_ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        fp32_bound_ms=main["fp32_bound_ms"], library_ms=None,
         library="none: no single PyTorch call computes the SSD chunk scan",
         timing=timing)
 
@@ -894,14 +983,18 @@ def _check_outputs(name, cfg, logits, tokens) -> None:
         fail(f"{name}: tokens outside [0, {cfg.vocab})")
 
 
+# E's three passes: one call launches each once (the first counts calls).
+_SSD_PASSES = ("ssd_scan", "ssd_scan_states", "ssd_scan_pass")
+
+
 def mamba_phase(seed: int, device: str = "cuda", smoke: bool = False
                 ) -> dict:
     """Mamba-2-1.3B at full width and depth, bf16, random weights:
     ``serve.prefill`` of 8 prompts x 2048 tokens, 32 greedy decode steps,
-    then one 16384-token prompt, prefill only.  E must launch once a layer
-    in each prefill and never in decode.  Then one prefill through E and
-    through its plain version: bf16 over every layer by the mean-error rule,
-    fp32 over 4 layers at 2e-4."""
+    then one 16384-token prompt, prefill only.  Each of E's passes must
+    launch once a layer in each prefill and never in decode.  Then one
+    prefill through E and through its plain version: bf16 over every layer
+    by the mean-error rule, fp32 over 4 layers at 2e-4."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
@@ -938,9 +1031,10 @@ def mamba_phase(seed: int, device: str = "cuda", smoke: bool = False
     dec = read_launches()
     _check_outputs("mamba2 prefill", cfg, logits, out)
     _check_outputs("mamba2 decode", cfg, last, out)
-    if pre["ssd_scan"] != cfg.n_layers or dec["ssd_scan"] != 0:
-        fail(f"ssd_scan launched {pre['ssd_scan']} times in prefill and "
-             f"{dec['ssd_scan']} in decode, not {cfg.n_layers} and 0")
+    for name in _SSD_PASSES:
+        if pre[name] != cfg.n_layers or dec[name] != 0:
+            fail(f"{name} launched {pre[name]} times in prefill and "
+                 f"{dec[name]} in decode, not {cfg.n_layers} and 0")
     res.update(prefill_ms=(t1 - t0) * 1e3,
                decode_ms_per_step=(t2 - t1) * 1e3 / steps,
                tokens_per_s=B * steps / (t2 - t1),
@@ -972,8 +1066,9 @@ def mamba_phase(seed: int, device: str = "cuda", smoke: bool = False
     t1 = time.perf_counter()
     lo = read_launches()
     _check_outputs("mamba2 long prefill", cfg, lg, lg.argmax(-1))
-    if lo["ssd_scan"] != cfg.n_layers:
-        fail(f"ssd_scan launched {lo['ssd_scan']} times in the long prefill")
+    for name in _SSD_PASSES:
+        if lo[name] != cfg.n_layers:
+            fail(f"{name} launched {lo[name]} times in the long prefill")
     res["long_prompt"] = dict(tokens=long_s, prefill_ms=(t1 - t0) * 1e3,
                               launches=lo, peak_bytes=_peak_bytes(device))
     del cache, lg
@@ -1082,12 +1177,23 @@ def griffin_phase(seed: int, device: str = "cuda", smoke: bool = False
             1 - prof["device_busy_ms"] / res["decode_ms_per_step"]
         prof["host_own_ms_by_function"] = host_profile(lambda: run(False))
     say(f"griffin path: {json.dumps(res)}")
-    step = kernel_vs_plain(decode_runner(params, cfg, cache, tok), serve,
-                           "decode_attention", tide_attention_ref,
-                           with_fp32=True)
-    res["bf16_step"] = bf16_check("griffin path, bf16 decode step "
-                                  f"(window {g.window}, first_live {live})",
-                                  step)
+    if cfg.adtype == torch.float32:
+        # The SMOKE config runs in fp32: kernel and plain version agree at
+        # the fp32 tolerance of the decode-step checks.
+        step = kernel_vs_plain(decode_runner(params, cfg, cache, tok), serve,
+                               "decode_attention", tide_attention_ref,
+                               with_fp32=False)
+        k, p = step["kernel"], step["plain"]
+        res["fp32_step"] = dict(max_abs_err=_close(k, p, 2e-4),
+                                max_abs_logit=float(p.abs().max()))
+        say(f"griffin path, fp32 decode step: {json.dumps(res['fp32_step'])}")
+    else:
+        step = kernel_vs_plain(decode_runner(params, cfg, cache, tok), serve,
+                               "decode_attention", tide_attention_ref,
+                               with_fp32=True)
+        res["bf16_step"] = bf16_check(
+            f"griffin path, bf16 decode step (window {g.window}, first_live "
+            f"{live})", step)
     del params, cache, step
     _free(device)
     return res
@@ -1289,6 +1395,9 @@ def main() -> None:
         f"{mamba['peak_bytes']} B")
     griffin = griffin_phase(args.seed)
     say(f"griffin path [{card}]: {json.dumps(griffin)}")
+    # The SMOKE config's KV blocks of 8 positions: D's tiles span blocks.
+    griffin_smoke = griffin_phase(args.seed, smoke=True)
+    say(f"griffin SMOKE path [{card}]: {json.dumps(griffin_smoke)}")
     say(f"griffin path [{card}]: prefill {griffin['batch']} x "
         f"{griffin['prompt_tokens']} tokens {griffin['prefill_ms']:.1f} ms, "
         f"decode {griffin['decode_ms_per_step']:.2f} ms a step, "
@@ -1299,7 +1408,8 @@ def main() -> None:
 
     by_path = {"storage": path["launches"], "llama3-8b": served["launches"],
                "mamba2-1.3b": mamba["launches"],
-               "recurrentgemma-9b": griffin["launches"]}
+               "recurrentgemma-9b": griffin["launches"],
+               "recurrentgemma-9b-smoke": griffin_smoke["launches"]}
     # Both decode paths split every row (S = 4 and 33 on 132 SMs), so each
     # call of D runs its combine pass too.
     for p in ("llama3-8b", "recurrentgemma-9b"):
@@ -1336,6 +1446,18 @@ def main() -> None:
                 key: k["recurrentgemma"][key] for key in (
                     "shape", "splits", "max_abs_err", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
+            rows[-1]["any_block"] = k["any_block"]
+        if name == "ssd_scan":
+            rows[-1]["pass_launches"] = {
+                n: sum(c[n] for c in by_path.values()) for n in _SSD_PASSES}
+            rows[-1]["warm_ms"] = k["warm_ms"]
+            rows[-1]["fp32_bound_ms"] = k["fp32_bound_ms"]
+            rows[-1]["long_prompt"] = {
+                key: k["timing"]["b=1 l=16384"][key] for key in (
+                    "ms", "warm_ms", "plain_ms", "bound_ms",
+                    "fp32_bound_ms")}
+            rows[-1]["mamba2_long_prefill_ms"] = \
+                mamba["long_prompt"]["prefill_ms"]
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,8 +23,12 @@
 // The design.
 // - Split pass, grid (S, KH * HC, B): CTA s of (b, kh) computes the row's
 //   live range [lo, hi) on the device, cuts it into tiles of R positions
-//   aligned to R (R divides blk, so a tile never straddles a KV block), and
-//   takes slice s of S equal runs of those tiles.  The split follows each
+//   aligned to R, and takes slice s of S equal runs of those tiles.  R
+//   comes from shared memory alone, not from blk: where R divides blk a
+//   tile lies in one KV block, and a cursor walks the blocks; where it does
+//   not (blk < R, or blk = 24 with R = 64), an instance of its own stages a
+//   tile that spans several blocks in runs of at most blk rows, each row
+//   finding its block in the table.  The split follows each
 //   row's own live range, so rows of different lengths spread over the SMs.
 //   S and R come from the host, from static shapes only (kernel.py,
 //   split_plan); nothing here waits on the host.  A CTA covers up to 16
@@ -33,9 +37,10 @@
 // - Staging: the CTA reads its slice's block ids from the table once, then
 //   keeps a ring of 2-3 stages of K and V tiles in shared memory filled with
 //   16-byte cp.async.cg copies, all of a stage's copies issued before any
-//   wait, so tiles t + 1 and t + 2 load while tile t is computed.  A cursor
-//   advances the next tile's stage, block and offset without a division, and
-//   each thread keeps one 16-byte column of the rows it copies.  Rows
+//   wait, so tiles t + 1 and t + 2 load while tile t is computed.  Where R
+//   divides blk, a cursor advances the next tile's stage, block and offset
+//   without a division, and each thread keeps one 16-byte column of the
+//   rows it copies; a tile that spans blocks divides once a copy.  Rows
 //   outside [lo, hi) are never read from device memory: cp.async with a
 //   source size of 0 writes zeros there, so the products never meet
 //   uninitialised shared memory, and their masked score (-inf) and zero V
@@ -560,7 +565,32 @@ __device__ __forceinline__ void stage_rows(T* dst, int row, const T* src,
   }
 }
 
-template <typename T, int R, int D>
+// The same copies for a tile that may span KV blocks (R does not divide
+// blk): the tile's rows fall in runs of at most blk rows, one run a block,
+// and each live row takes its block from the slice's table entries
+// (blocks[j - j0] holds table entry j).
+template <typename T, int R>
+__device__ __forceinline__ void stage_rows_span(
+    T* dst, int row, const T* arena, const int* blocks, int j0,
+    const Shape& s, int b, int kh, int d, int start, int lo, int hi) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per = d / kVec;               // 16-byte units a row
+  for (int i = threadIdx.x; i < R * per; i += kThreads) {
+    const int r = i / per, col = (i % per) * kVec, pos = start + r;
+    const bool live = pos >= lo && pos < hi;
+    const T* src = arena;
+    if (live) {
+      const int j = pos / s.blk;
+      const size_t row0 =
+          (((size_t)b * s.NB + blocks[j - j0]) * s.blk + (pos - j * s.blk)) *
+              s.KH + kh;
+      src = arena + row0 * d + col;
+    }
+    cp_async16(dst + r * row + col, src, live);
+  }
+}
+
+template <typename T, int R, int D, bool kSpan>
 __global__ void __launch_bounds__(kThreads)
     tide_split_kernel(const T* __restrict__ q, const T* __restrict__ arena_k,
                       const T* __restrict__ arena_v,
@@ -614,8 +644,10 @@ __global__ void __launch_bounds__(kThreads)
   using Path = PathOf<T, R>;
   int* blocks = reinterpret_cast<int*>(
       c.rest + ((Path::rest_bytes(s.dk, s.dv) + 15) / 16) * 16);
+  // The table entries of the slice's tiles.  A last tile that spans past
+  // the arena's end (R does not divide NB * blk) holds no live row there.
   const int j0 = c.t_begin * R / s.blk;
-  const int j1 = ((c.t_end * R) - 1) / s.blk;
+  const int j1 = min((c.t_end * R - 1) / s.blk, s.NB - 1);
   for (int j = j0 + threadIdx.x; j <= j1; j += kThreads)
     blocks[j - j0] = table[(size_t)c.b * s.NB + j];
   Path path(c);
@@ -623,27 +655,35 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();                        // block ids, q and state set
 
   // The next tile to stage: its index, stage slot, and logical block and
-  // offset in it, advanced without a division.
+  // offset in it, advanced without a division where a tile lies in one
+  // block (kSpan false: R divides blk).
   int ti_next = c.t_begin, slot_next = 0, j_next = j0;
   int off_next = c.t_begin * R - j0 * s.blk;
   auto issue = [&]() {
     if (ti_next < c.t_end) {
       T* kt = c.stage0 + slot_next * stage_elems;
-      const int phys = blocks[j_next - j0];
-      const size_t row0 =
-          (((size_t)c.b * s.NB + phys) * s.blk + off_next) * s.KH + c.kh;
-      stage_rows<T, R>(kt, c.row_k, arena_k + row0 * s.dk, s.KH, s.dk,
-                       ti_next * R, c.lo, c.hi);
-      stage_rows<T, R>(kt + (size_t)R * c.row_k, c.row_v,
-                       arena_v + row0 * s.dv, s.KH, s.dv, ti_next * R, c.lo,
-                       c.hi);
+      T* vt = kt + (size_t)R * c.row_k;
+      if constexpr (!kSpan) {
+        const int phys = blocks[j_next - j0];
+        const size_t row0 =
+            (((size_t)c.b * s.NB + phys) * s.blk + off_next) * s.KH + c.kh;
+        stage_rows<T, R>(kt, c.row_k, arena_k + row0 * s.dk, s.KH, s.dk,
+                         ti_next * R, c.lo, c.hi);
+        stage_rows<T, R>(vt, c.row_v, arena_v + row0 * s.dv, s.KH, s.dv,
+                         ti_next * R, c.lo, c.hi);
+        off_next += R;
+        if (off_next == s.blk) {
+          off_next = 0;
+          ++j_next;
+        }
+      } else {
+        stage_rows_span<T, R>(kt, c.row_k, arena_k, blocks, j0, s, c.b, c.kh,
+                              s.dk, ti_next * R, c.lo, c.hi);
+        stage_rows_span<T, R>(vt, c.row_v, arena_v, blocks, j0, s, c.b, c.kh,
+                              s.dv, ti_next * R, c.lo, c.hi);
+      }
       ++ti_next;
       slot_next = slot_next + 1 == s.stages ? 0 : slot_next + 1;
-      off_next += R;
-      if (off_next == s.blk) {
-        off_next = 0;
-        ++j_next;
-      }
     }
     cp_async_commit();                    // an empty group past the end
   };
@@ -713,7 +753,7 @@ __global__ void __launch_bounds__(kCombineThreads)
 
 // Raise the split kernel's dynamic-shared-memory limit to `bytes`, once per
 // size above the largest it has been given on this device.
-template <typename T, int R, int D>
+template <typename T, int R, int D, bool kSpan>
 cudaError_t allow_smem(size_t bytes) {
   static std::atomic<int> granted[64];
   int dev = 0;
@@ -721,14 +761,14 @@ cudaError_t allow_smem(size_t bytes) {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if ((int)bytes <= granted[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(tide_split_kernel<T, R, D>,
+  err = cudaFuncSetAttribute(tide_split_kernel<T, R, D, kSpan>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err == cudaSuccess) granted[dev].store(static_cast<int>(bytes));
   return err;
 }
 
-template <typename T, int R, int D = 0>
+template <typename T, int R, int D, bool kSpan>
 int launch_r(const void* q, const void* arena_k, const void* arena_v,
              const void* table, const void* seq_lens, const void* first_live,
              void* out, void* part_ml, void* part_acc, Shape s,
@@ -740,10 +780,10 @@ int launch_r(const void* q, const void* arena_k, const void* arena_v,
   s.stages = fixed + 3 * stage <= kSmemLimit ? 3 : 2;
   const size_t smem = fixed + s.stages * stage;
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem<T, R, D>(smem);
+  cudaError_t err = allow_smem<T, R, D, kSpan>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tide_split_kernel<T, R, D><<<dim3(s.S, s.KH * s.HC, s.B), kThreads, smem,
-                               stream>>>(
+  tide_split_kernel<T, R, D, kSpan><<<dim3(s.S, s.KH * s.HC, s.B), kThreads,
+                                      smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(arena_k),
       static_cast<const T*>(arena_v), static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(seq_lens),
@@ -757,6 +797,21 @@ int launch_r(const void* q, const void* arena_k, const void* arena_v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Tiles of R positions with runtime head dims: the spanning copies where R
+// does not divide blk.
+template <typename T, int R>
+int launch_tile(bool span, const void* q, const void* arena_k,
+                const void* arena_v, const void* table, const void* seq_lens,
+                const void* first_live, void* out, void* part_ml,
+                void* part_acc, const Shape& s, cudaStream_t st) {
+  return span ? launch_r<T, R, 0, true>(q, arena_k, arena_v, table, seq_lens,
+                                        first_live, out, part_ml, part_acc, s,
+                                        st)
+              : launch_r<T, R, 0, false>(q, arena_k, arena_v, table,
+                                         seq_lens, first_live, out, part_ml,
+                                         part_acc, s, st);
+}
+
 template <typename T>
 int launch(const void* q, const void* arena_k, const void* arena_v,
            const void* table, const void* seq_lens, const void* first_live,
@@ -767,30 +822,33 @@ int launch(const void* q, const void* arena_k, const void* arena_v,
   const int unit = mma ? 16 : 4;
   if (B <= 0 || KH <= 0 || H % KH != 0 || NB <= 0 || dk % unit != 0 ||
       dv % unit != 0 || (mma && dv > kMaxDvMma) || S < 1 || S > kMaxS ||
-      blk % R != 0 || (S > 1 && (part_ml == nullptr || part_acc == nullptr)))
+      blk <= 0 || (S > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KH;
   const Shape s{B, H, KH, NB, blk, dk, dv, window, S,
                 (G + kRows - 1) / kRows, 0, scale};
   const auto st = static_cast<cudaStream_t>(stream);
+  const bool span = blk % R != 0;         // a tile may straddle KV blocks
   if constexpr (mma) {                    // the main decode shapes
-    if (R == 64 && dk == dv && dk == 128)
-      return launch_r<T, 64, 128>(q, arena_k, arena_v, table, seq_lens,
-                                  first_live, out, part_ml, part_acc, s, st);
-    if (R == 64 && dk == dv && dk == 256)
-      return launch_r<T, 64, 256>(q, arena_k, arena_v, table, seq_lens,
-                                  first_live, out, part_ml, part_acc, s, st);
+    if (!span && R == 64 && dk == dv && dk == 128)
+      return launch_r<T, 64, 128, false>(q, arena_k, arena_v, table,
+                                         seq_lens, first_live, out, part_ml,
+                                         part_acc, s, st);
+    if (!span && R == 64 && dk == dv && dk == 256)
+      return launch_r<T, 64, 256, false>(q, arena_k, arena_v, table,
+                                         seq_lens, first_live, out, part_ml,
+                                         part_acc, s, st);
   }
   switch (R) {
     case 64:
-      return launch_r<T, 64>(q, arena_k, arena_v, table, seq_lens,
-                             first_live, out, part_ml, part_acc, s, st);
+      return launch_tile<T, 64>(span, q, arena_k, arena_v, table, seq_lens,
+                                first_live, out, part_ml, part_acc, s, st);
     case 32:
-      return launch_r<T, 32>(q, arena_k, arena_v, table, seq_lens,
-                             first_live, out, part_ml, part_acc, s, st);
+      return launch_tile<T, 32>(span, q, arena_k, arena_v, table, seq_lens,
+                                first_live, out, part_ml, part_acc, s, st);
     case 16:
-      return launch_r<T, 16>(q, arena_k, arena_v, table, seq_lens,
-                             first_live, out, part_ml, part_acc, s, st);
+      return launch_tile<T, 16>(span, q, arena_k, arena_v, table, seq_lens,
+                                first_live, out, part_ml, part_acc, s, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -806,8 +864,8 @@ const char* error_string(int err) {
 
 // q (B,H,dk), arena_k (B,NB,blk,KH,dk), arena_v (B,NB,blk,KH,dv), out
 // (B,H,dv): contiguous, 16-byte aligned; table (B,NB), seq_lens and
-// first_live (B,): int32.  S splits of R-position tiles (R in {16, 32, 64}
-// dividing blk); with S > 1, part_ml (B,H,S,2) and part_acc (B,H,S,dv) are
+// first_live (B,): int32.  S splits of R-position tiles (R in {16, 32, 64},
+// any blk); with S > 1, part_ml (B,H,S,2) and part_acc (B,H,S,dv) are
 // fp32 scratch, else they may be null.
 int tide_attention_bf16(const void* q, const void* arena_k,
                         const void* arena_v, const void* table,

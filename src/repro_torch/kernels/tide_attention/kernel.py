@@ -53,20 +53,20 @@ def split_plan(B: int, H: int, KH: int, NB: int, blk: int, window: int,
                sms: int, pos_bytes: int) -> tuple[int, int]:
     """(S, R): split each row's live range into S slices of R-position
     tiles.  Static shapes only, never the lengths.  R is the largest of 64,
-    32, 16 that divides ``blk`` and whose two stages of K and V
-    (``pos_bytes`` of shared memory a position, see ``row_bytes``) fit the
-    budget.  S aims at
+    32, 16 whose two stages of K and V (``pos_bytes`` of shared memory a
+    position, see ``row_bytes``) fit the budget, whatever ``blk``: a tile
+    that spans KV blocks is staged a block's run at a time.  S aims at
     two CTAs a streaming multiprocessor over the B x KH x ceil(G / 16) CTAs
     of one split, and stops at the most tiles a row can hold live (a window
     of w positions spans at most ceil(w / R) + 1 tiles)."""
     R = next((r for r in (64, 32, 16)
-              if blk % r == 0 and 2 * r * pos_bytes <= STAGE_BUDGET), None)
-    if R is None:
-        raise ValueError(f"tide_attention needs blocks of a multiple of 16 "
-                         f"positions and rows that fit shared memory, not "
-                         f"blk={blk} with {pos_bytes} bytes a position")
+              if 2 * r * pos_bytes <= STAGE_BUDGET), None)
+    if R is None or blk <= 0:
+        raise ValueError(f"tide_attention needs rows that fit shared memory "
+                         f"and blocks of at least one position, not blk={blk} "
+                         f"with {pos_bytes} bytes a position")
     ctas = B * KH * -(-(H // KH) // ROWS)
-    tiles = NB * blk // R
+    tiles = -(-(NB * blk) // R)
     if window > 0:
         tiles = min(tiles, -(-window // R) + 1)
     S = max(1, min(round(CTAS_PER_SM * sms / ctas), tiles, MAX_SPLITS))
@@ -109,8 +109,8 @@ def tide_attention(q: torch.Tensor, arena_k: torch.Tensor,
     int32 → (B,H,dv) in q's dtype.  ``seq_lens`` counts valid slots (the new
     token's entry already appended).  A per-layer slice ``arena[l]`` of a
     contiguous ``(L, …)`` arena is contiguous.  Head dims must be multiples
-    of 16 in bf16 (dv at most 256) and of 4 in fp32, and ``blk`` a multiple
-    of 16."""
+    of 16 in bf16 (dv at most 256) and of 4 in fp32; ``blk`` may be any
+    size."""
     if q.dim() != 3 or arena_k.dim() != 5 or arena_v.dim() != 5:
         raise ValueError("q must be (B,H,dk) and the arenas (B,NB,blk,KH,d)")
     B, H, dk = q.shape

@@ -29,6 +29,7 @@ from repro_torch.kernels.optimistic_lookup.ref import optimistic_lookup_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_scan as ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_passes
 from repro_torch.kernels.tide_attention import kernel as tide_kernel
 from repro_torch.kernels.tide_attention.ops import decode_attention
 from repro_torch.kernels.tide_attention.ref import tide_attention_ref
@@ -255,6 +256,9 @@ def _tide_launch(args, window):
     (2, 8, 2, 96, 96, 3, 64, 0),          # phi3-mini's head dim of 96
     (3, 4, 4, 32, 32, 2, 16, 0),          # MHA
     (2, 16, 2, 64, 32, 5, 64, 48),        # dk != dv, window
+    (2, 8, 2, 64, 64, 6, 8, 0),           # blk = 8 < R: tiles span blocks
+    (3, 16, 4, 64, 32, 5, 24, 40),        # blk = 24: R does not divide it
+    (2, 4, 1, 16, 16, 4, 8, 16),          # RecurrentGemma SMOKE decode
 ])
 def test_tide_attention_kernel_on_card(card, dtype, tol, B, H, KH, dk, dv,
                                        NB, blk, window):
@@ -311,6 +315,8 @@ def _dead_rows(case, window):
     ((4, 16, 1, 256, 256, 32, 128), [2624, 2624, 100, 3000],
      [512, 512, 0, 640], 2048),
     ((2, 16, 2, 64, 32, 5, 64), [300, 200], [70, 0], 48),
+    ((2, 8, 2, 64, 64, 6, 8), [40, 17], [9, 0], 0),
+    ((3, 16, 4, 64, 32, 5, 24), [100, 47, 120], [30, 0, 50], 40),
 ])
 def test_tide_attention_never_reads_dead_rows(card, dtype, tol, shape, lens,
                                               live, window):
@@ -374,6 +380,19 @@ def _ssd_on_card(case, card, dtype):
             None if s0 is None else _t(s0).to(card))
 
 
+def _ssd_launch(args, c, s0, **kw):
+    """ops.ssd through the kernel; checks that each pass ran once (and the
+    split of the inputs once in fp32)."""
+    before = dict(ssd_kernel.launches)
+    got = ssd(*args, chunk=c, init_state=s0, **kw)
+    torch.cuda.synchronize()
+    split = args[0].dtype == torch.float32
+    for name, more in (("ssd_scan", 1), ("ssd_scan_states", 1),
+                       ("ssd_scan_pass", 1), ("ssd_scan_split", split)):
+        assert ssd_kernel.launches[name] == before[name] + more, name
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,p,n,c,init", [
     (8, 2048, 64, 64, 128, 256, False),   # Mamba-2-1.3B prefill
@@ -383,14 +402,13 @@ def _ssd_on_card(case, card, dtype):
     (1, 128, 4, 64, 128, 32, False),
     (3, 48, 8, 16, 16, 16, False),
     (2, 40, 4, 16, 32, 16, False),
+    (1, 16384, 64, 64, 128, 256, False),  # one long Mamba-2 prompt
+    (2, 96, 6, 16, 32, 32, True),         # h = 6, no block of 4 heads
 ])
 def test_ssd_scan_kernel_on_card(card, b, l, h, p, n, c, init):
     case = _ssd_case(l + h, b, l, h, p, n, init)
     args, s0 = _ssd_on_card(case, card, torch.float32)
-    before = ssd_kernel.launches["ssd_scan"]
-    y, st = ssd(*args, chunk=c, init_state=s0)
-    torch.cuda.synchronize()
-    assert ssd_kernel.launches["ssd_scan"] == before + 1
+    y, st = _ssd_launch(args, c, s0)
     assert y.shape == (b, l, h, p) and st.dtype == torch.float32
     yr, sr = ssd_scan_ref(*args, chunk=c, init_state=s0)
     torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
@@ -401,7 +419,7 @@ def test_ssd_scan_kernel_on_card(card, b, l, h, p, n, c, init):
     # held against the plain version in fp32 on the same rounded inputs.
     # The state is fp32 from those inputs in all three: fp32 tolerance.
     bargs, _ = _ssd_on_card(case, card, torch.bfloat16)
-    yk, sk = ssd(*bargs, chunk=c, init_state=s0)
+    yk, sk = _ssd_launch(bargs, c, s0)
     yp, _ = ssd_scan_ref(*bargs, chunk=c, init_state=s0)
     y32, s32 = ssd_scan_ref(*[a.float() for a in bargs], chunk=c,
                             init_state=s0)
@@ -409,6 +427,42 @@ def test_ssd_scan_kernel_on_card(card, b, l, h, p, n, c, init):
     err = (yk.float() - y32).abs().mean()
     assert err <= 1.25 * (yp.float() - y32).abs().mean(), err
     torch.testing.assert_close(sk, s32, rtol=3e-4, atol=3e-4)
+    # The kernel's own rounding in plain ops (bf16 inputs exact, each
+    # computed fp32 operand as a hi and a lo bf16 part): y element by
+    # element within one bf16 ulp (2^-7 relative) and 2^-10 of the mean |y|.
+    # A kernel that dropped the lo part of W or of the carried state breaks
+    # it; the mean rule above does not see that.
+    ym, _ = ssd_scan_passes(*bargs, chunk=c, init_state=s0, split=True)
+    torch.testing.assert_close(
+        yk.float(), ym.float(), rtol=2.0 ** -7,
+        atol=2.0 ** -10 * float(ym.float().abs().mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,c,init", [
+    (2, 1000, 64, 64, 128, 256, True),    # Mamba-2 widths, ragged
+    (2, 40, 6, 16, 32, 16, False),
+])
+def test_ssd_scan_reads_only_what_it_wrote(card, dtype, b, l, h, p, n, c,
+                                           init):
+    """Every scratch element holds NaN before the call: the outputs must be
+    finite and equal, bit for bit, to a call on fresh scratch, so each
+    element a pass reads was written by the pass before."""
+    x, dt, A, Bm, Cm, s0 = _ssd_case(l + 2 * h, b, l, h, p, n, init)
+    l = -(-l // c) * c                                 # as ops.ssd pads
+    pad = lambda a: np.pad(a, [(0, 0), (0, l - a.shape[1])] +
+                           [(0, 0)] * (a.ndim - 2))
+    args, s0 = _ssd_on_card((pad(x), pad(dt), A, pad(Bm), pad(Cm), s0),
+                            card, dtype)
+    sc = ssd_kernel.alloc_scratch(b, l, h, p, n, c, dtype, card)
+    for t in sc.values():
+        t.fill_(float("nan"))
+    y, st = ssd_kernel.ssd_scan(*args, chunk=c, init_state=s0, _scratch=sc)
+    yf, sf = ssd_kernel.ssd_scan(*args, chunk=c, init_state=s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    assert torch.equal(y, yf) and torch.equal(st, sf)
 
 
 @pytest.mark.cuda
@@ -427,3 +481,17 @@ def test_ssd_scan_rejects_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_kernel.ssd_scan(args[0].transpose(1, 2).contiguous()
                             .transpose(1, 2), *args[1:], chunk=16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_kernel.ssd_scan(args[0][..., :8].contiguous(), *args[1:],
+                            chunk=16)
+    wide = [torch.zeros((1, 32, 144), device=card) for _ in range(2)]
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd_kernel.ssd_scan(*args[:3], *wide, chunk=16)
+    # A scratch from other shapes or for the other entry is refused before
+    # the kernels could write past it.
+    for sc in (ssd_kernel.alloc_scratch(1, 16, 4, 16, 16, 16, torch.float32,
+                                        card),
+               ssd_kernel.alloc_scratch(1, 32, 4, 16, 16, 16, torch.bfloat16,
+                                        card)):
+        with pytest.raises(ValueError, match="scratch"):
+            ssd_kernel.ssd_scan(*args, chunk=16, _scratch=sc)

@@ -135,7 +135,7 @@ def test_split_plan_fills_the_card(shape, dtype):
                                   _row_bytes(d, dtype))
     assert blk % R == 0
     assert S * KH * B >= H100_SMS
-    tiles = NB * blk // R
+    tiles = -(-NB * blk // R)
     if window:
         tiles = min(tiles, -(-window // R) + 1)
     assert 1 <= S <= min(tiles, tide_kernel.MAX_SPLITS)
@@ -155,16 +155,40 @@ def test_split_plan_at_the_main_shapes():
                                   _row_bytes(256, torch.float32))[1] == 32
 
 
-@pytest.mark.parametrize("blk,R", [(128, 64), (96, 32), (48, 16)])
+@pytest.mark.parametrize("blk,R", [(128, 64), (64, 64), (256, 64)])
 def test_split_plan_tile_divides_the_block(blk, R):
-    assert tide_kernel.split_plan(2, 8, 2, 4, blk, 0, H100_SMS,
-                                  _row_bytes(64, torch.bfloat16))[1] == R
+    """At block sizes that are multiples of 64 (the main shapes' 128) the
+    tile divides the block, so every tile lies in one KV block and takes
+    the kernel's single-block cursor."""
+    S, got = tide_kernel.split_plan(2, 8, 2, 4, blk, 0, H100_SMS,
+                                    _row_bytes(64, torch.bfloat16))
+    assert got == R and blk % got == 0
+    assert 1 <= S <= 4 * blk // R
+
+
+@pytest.mark.parametrize("blk,R", [(96, 64), (48, 64), (24, 64), (8, 64)])
+def test_split_plan_tile_comes_from_shared_memory_alone(blk, R):
+    """The tile does not depend on the block size: where blk is smaller
+    than R or R does not divide it, a tile spans several KV blocks
+    (ROADMAP C.8), and the tiles still cover the whole arena."""
+    S, got = tide_kernel.split_plan(2, 8, 2, 4, blk, 0, H100_SMS,
+                                    _row_bytes(64, torch.bfloat16))
+    assert got == R and blk % got != 0
+    assert 1 <= S <= -(-4 * blk // R)
 
 
 def test_split_plan_refuses_blocks_it_cannot_tile():
-    with pytest.raises(ValueError, match="multiple of 16"):
+    """What it cannot tile: rows whose two stages of 16 positions overflow
+    the shared-memory budget, and empty blocks.  Blocks of 8 positions
+    plan."""
+    with pytest.raises(ValueError, match="shared memory"):
         tide_kernel.split_plan(2, 8, 2, 4, 8, 0, H100_SMS,
+                               tide_kernel.STAGE_BUDGET // 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        tide_kernel.split_plan(2, 8, 2, 4, 0, 0, H100_SMS,
                                _row_bytes(64, torch.bfloat16))
+    assert tide_kernel.split_plan(2, 4, 1, 8, 8, 16, H100_SMS,
+                                  _row_bytes(16, torch.bfloat16)) == (1, 64)
 
 
 def test_split_plan_grows_with_fewer_ctas():
