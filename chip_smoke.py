@@ -15,7 +15,10 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    and the kernel build: one ``nvcc`` per source, started together.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes its main path gives it: the storage kernels bit for bit,
-   with the u32 wraparound and budget-exhaustion cases; tide_attention at
+   with the u32 wraparound and budget-exhaustion cases (the lookup's two
+   entries: the TPU kernel's contract, and the resolve entry the read path
+   launches, against the plain rounds followed by the searchsorted oracle),
+   cold and warm; tide_attention at
    Llama-3-8B and RecurrentGemma-9B decode shapes in bf16 (2e-2, and 4e-3
    absolute) and fp32 (2e-5), with a pruned row, sliding windows and two
    empty rows that must be exactly 0, and the Llama shape in KV blocks of 8
@@ -25,7 +28,9 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    kernel's rounding mirrored in plain ops).  Times from CUDA events (median
    of 30) beside the plain version, the library call where one exists, and
    the least time the card allows for this run's data (its memory rate or
-   its peak rate for the operations' type); ssd_scan also at one
+   its peak rate for the operations' type), and the launch floor: the time
+   of a launched kernel that does no work (``torch.cuda._sleep(0)``, timed
+   the same way, ``floor_ms`` on every row); ssd_scan also at one
    16384-token prompt, with the device time of each of its three passes
    and its fp32-rate bound beside its tensor-core bound.
 3. The storage path, through the engine's public API with ``device="cuda"``:
@@ -34,8 +39,9 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    memoized), ``multi_exists`` on 32768 keys (half present) and
    ``multi_get`` on 8192 present keys.  Every answer is checked against
    what was written.  Then a second, warm read pass runs under
-   torch.profiler (device time of each kernel and copy) and a third under
-   cProfile (host time).
+   torch.profiler (device time of each kernel and copy, and the kernels the
+   wrappers counted; no cub select or reduce kernel may run in
+   ``multi_exists``) and a third under cProfile (host time).
 4. The serving path: ``ServingEngine`` over full-width Llama-3-8B with
    random weights from a seeded generator, 8 slots of 2048 positions, 16
    greedy requests of 16-1024 prompt tokens and 32 new tokens each.  Every
@@ -237,8 +243,8 @@ def kernel_phase(seed: int, device: str = "cuda") -> dict:
     from repro_torch.kernels.bloom_check.ref import (bloom_check_ragged_ref,
                                                      bloom_check_ref)
     from repro_torch.kernels.optimistic_lookup import kernel as lk
-    from repro_torch.kernels.optimistic_lookup.ref import \
-        optimistic_lookup_ref
+    from repro_torch.kernels.optimistic_lookup.ref import (
+        lookup_indices_ref, optimistic_lookup_ref)
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -271,6 +277,7 @@ def kernel_phase(seed: int, device: str = "cuda") -> dict:
         shape=f"Q={q} over {cells} cells x {words} words, k=7",
         mismatches=bad + b2, max_abs_err=max(err, e2),
         ms=time_ms(lambda: bk.bloom_check_ragged(*args)),
+        cold_ms=time_ms(lambda: bk.bloom_check_ragged(*args), cold=True),
         plain_ms=time_ms(lambda: bloom_check_ragged_ref(*args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -295,6 +302,7 @@ def kernel_phase(seed: int, device: str = "cuda") -> dict:
         shape=f"Q=4096 over one cell of {words} words, k=7",
         mismatches=bad + b2, max_abs_err=max(err, e2),
         ms=time_ms(lambda: bk.bloom_check(a1, a2, cbits)),
+        cold_ms=time_ms(lambda: bk.bloom_check(a1, a2, cbits), cold=True),
         plain_ms=time_ms(lambda: bloom_check_ref(a1, a2, cbits)),
         bound_ms=a_ms, bound_by=a_by, library_ms=None)
 
@@ -323,22 +331,54 @@ def kernel_phase(seed: int, device: str = "cuda") -> dict:
                       optimistic_lookup_ref(cqueries, ckeys, window=128,
                                             max_iters=2))
     iters = got[2]
-    nbytes = 4 * GET_KEYS + 9 * GET_KEYS + 4 * _lookup_windows_needed(
-        queries, keys, window, 4)
-    c_ms, c_by = bound(nbytes, 2 * window * GET_KEYS)
+    window_bytes = 4 * _lookup_windows_needed(queries, keys, window, 4)
+    # Reads the queries and the windows, writes idx, found and iters.
+    c_ms, c_by = bound(4 * GET_KEYS + window_bytes + 9 * GET_KEYS,
+                       2 * window * GET_KEYS)
     keys64 = keys.to(torch.int64)
     q64 = queries.to(torch.int64)
+    library_ms = time_ms(lambda: torch.searchsorted(keys64, q64))
+    raw = lambda: lk.optimistic_lookup(queries, keys, window=window)
     out["optimistic_lookup"] = dict(
         replaces="src/repro/kernels/optimistic_lookup/kernel.py:73",
         shape=f"Q={GET_KEYS} over N={n} keys, window {window}, 4 rounds",
         mismatches=bad + b2, max_abs_err=max(err, e2),
         mean_iters=float(iters.float().mean()),
-        ms=time_ms(lambda: lk.optimistic_lookup(queries, keys,
-                                                window=window)),
+        ms=time_ms(raw), cold_ms=time_ms(raw, cold=True),
         plain_ms=time_ms(lambda: optimistic_lookup_ref(queries, keys,
                                                        window=window)),
-        bound_ms=c_ms, bound_by=c_by,
-        library_ms=time_ms(lambda: torch.searchsorted(keys64, q64)),
+        bound_ms=c_ms, bound_by=c_by, library_ms=library_ms,
+        library="torch.searchsorted on int64 copies of the same inputs")
+
+    # C's resolve entry, the one the read path launches: the same rounds,
+    # then a lower bound over the whole array where they ran out, against
+    # the plain rounds followed by the searchsorted oracle.
+    bad, err = _compare("optimistic_lookup_resolve",
+                        lk.optimistic_lookup_resolve(queries, keys,
+                                                     window=window),
+                        lookup_indices_ref(queries, keys, window=window))
+    b2, e2 = _compare("optimistic_lookup_resolve budget exhaustion",
+                      lk.optimistic_lookup_resolve(cqueries, ckeys,
+                                                   window=128, max_iters=2),
+                      lookup_indices_ref(cqueries, ckeys, window=128,
+                                         max_iters=2))
+    # Writes idx and found only; an unresolved query reads at least the
+    # log2(N) keys of a binary search besides.
+    unresolved = int((got[0] < 0).sum())
+    r_ms, r_by = bound(4 * GET_KEYS + window_bytes + 5 * GET_KEYS
+                       + 4 * unresolved * n.bit_length(),
+                       2 * window * GET_KEYS)
+    resolve = lambda: lk.optimistic_lookup_resolve(queries, keys,
+                                                   window=window)
+    out["optimistic_lookup_resolve"] = dict(
+        replaces="src/repro/kernels/optimistic_lookup/kernel.py:73",
+        shape=f"Q={GET_KEYS} over N={n} keys, window {window}, 4 rounds, "
+              f"{unresolved} unresolved",
+        mismatches=bad + b2, max_abs_err=max(err, e2),
+        ms=time_ms(resolve), cold_ms=time_ms(resolve, cold=True),
+        plain_ms=time_ms(lambda: lookup_indices_ref(queries, keys,
+                                                    window=window)),
+        bound_ms=r_ms, bound_by=r_by, library_ms=library_ms,
         library="torch.searchsorted on int64 copies of the same inputs")
     return out
 
@@ -666,10 +706,10 @@ def bf16_check(name: str, step: dict, max_rule: bool = True) -> dict:
     return bf
 
 
-def device_profile(fn, match: str) -> dict:
-    """``fn()`` under torch.profiler: wall time, device time by op, the
-    share of the kernels whose name holds ``match`` and of the matrix
-    products, and the device's idle share."""
+def device_profile(fn, match: str, top: int | None = 10) -> dict:
+    """``fn()`` under torch.profiler: wall time, device time by op (the
+    ``top`` largest, or every op), the share of the kernels whose name holds
+    ``match`` and of the matrix products, and the device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -696,7 +736,7 @@ def device_profile(fn, match: str) -> dict:
             f"{match}_share": hit / busy if busy else 0.0,
             "matmul_ms": mm, "matmul_share": mm / busy if busy else 0.0,
             "device_ms_by_op": dict(sorted(dev.items(),
-                                           key=lambda kv: -kv[1])[:10])}
+                                           key=lambda kv: -kv[1])[:top])}
 
 
 def profile_step(engine) -> dict:
@@ -1262,41 +1302,26 @@ def main_path(n_keys: int, seed: int, workdir: str,
 
 def profile_reads(db, probe, gkeys) -> dict:
     """Warm read passes: one under torch.profiler (wall time, the device
-    time of each kernel and copy, and their sum), one under cProfile (the
-    host functions that take the most time of their own)."""
-    import cProfile
-    import pstats
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    time of every kernel and copy, their sum, and the kernels launched, by
+    the wrappers' counts), one under cProfile (the host functions that take
+    the most time of their own).  Fails if ``multi_exists`` launched a cub
+    select or reduce kernel: the lookup resolves on the card in one launch.
+    """
     out = {}
     for name, call in (("multi_exists", lambda: db.multi_exists(
             probe, keyspace="kv")),
             ("multi_get", lambda: db.multi_get(gkeys, keyspace="kv"))):
         db.cache = type(db.cache)(db.cfg.cache_bytes)     # no value hits
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev = {}
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", 0) or 0
-            if t > 0 and not ev.key.startswith(("aten::", "Activity")):
-                dev[ev.key[:60]] = t / 1e3
+        reset_launches()
+        prof = device_profile(call, "lookup", top=None)
+        prof["launches"] = {k: v for k, v in read_launches().items() if v}
         db.cache = type(db.cache)(db.cfg.cache_bytes)
-        host = cProfile.Profile()
-        host.runcall(call)
-        stats = pstats.Stats(host).stats
-        top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
-        out[name] = {
-            "wall_ms": wall * 1e3,
-            "device_busy_ms": sum(dev.values()),
-            "device_ms_by_op": dict(sorted(dev.items(),
-                                           key=lambda kv: -kv[1])[:8]),
-            "host_own_ms_by_function": {
-                f"{Path(f).name}:{line}:{fn}": st[2] * 1e3
-                for (f, line, fn), st in top}}
+        prof["host_own_ms_by_function"] = host_profile(call)
+        out[name] = prof
+    cub = [k for k in out["multi_exists"]["device_ms_by_op"]
+           if "DeviceSelect" in k or "DeviceReduce" in k]
+    if cub:
+        fail(f"multi_exists launched cub select or reduce kernels: {cub}")
     return out
 
 
@@ -1357,6 +1382,10 @@ def main() -> None:
             elif "registers" in line or "spill" in line:
                 say(f"  {name}:   {line.strip()}")
 
+    # The launch floor: a launched kernel that does no work, timed as every
+    # kernel is.
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    say(f"launch floor [{card}]: {floor_ms} ms")
     kernels = kernel_phase(args.seed)
     kernels["tide_attention"] = tide_phase(args.seed)
     kernels["ssd_scan"] = ssd_phase(args.seed)
@@ -1374,7 +1403,7 @@ def main() -> None:
     say(f"main path [{card}]: put {path['put_ops_s']:.0f} ops/s, "
         f"multi_exists {path['exists_ops_s']:.0f} ops/s, "
         f"multi_get {path['get_ops_s']:.0f} ops/s")
-    for name in ("bloom_check_ragged", "optimistic_lookup"):
+    for name in ("bloom_check_ragged", "optimistic_lookup_resolve"):
         if path["launches"][name] < 1:
             fail(f"the main path never launched {name}")
 
@@ -1421,6 +1450,7 @@ def main() -> None:
     for name, src in (("bloom_check_ragged", "bloom_check.cu"),
                       ("bloom_check", "bloom_check.cu"),
                       ("optimistic_lookup", "optimistic_lookup.cu"),
+                      ("optimistic_lookup_resolve", "optimistic_lookup.cu"),
                       ("tide_attention", "tide_attention.cu"),
                       ("ssd_scan", "ssd_scan.cu")):
         k = kernels[name]
@@ -1436,8 +1466,10 @@ def main() -> None:
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], "shape": k["shape"],
-            "card": card})
+            "library_ms": k["library_ms"], "floor_ms": floor_ms,
+            "shape": k["shape"], "card": card})
+        if "cold_ms" in k:
+            rows[-1]["cold_ms"] = k["cold_ms"]
         if name == "tide_attention":
             rows[-1]["combine_launches"] = sum(
                 c["tide_attention_combine"] for c in by_path.values())

@@ -53,7 +53,7 @@ def identity_table(batch: int, n_blocks: int, device) -> torch.Tensor:
         batch, 1)
 
 
-def init_cache(spec: KVWalSpec, device="cpu") -> dict:
+def init_cache(spec: KVWalSpec, device="cuda") -> dict:
     """Fresh arena + identity table."""
     return {
         "arena": torch.zeros(spec.arena_shape(), dtype=getattr(torch, spec.dtype),

@@ -4,8 +4,9 @@ queries the kernel left unresolved (budget exhausted).
 
 ``lookup`` takes tensors and picks by the tensors' device: a CUDA tensor
 launches the kernel (``kernel.py``, which raises on what it cannot take), a
-CPU tensor takes the plain version (``ref.py``).  ``lookup_indices`` adds
-the oracle fallback.  ``lookup_indices_batch`` is the numpy-in / numpy-out
+CPU tensor takes the plain version (``ref.py``).  ``lookup_indices`` resolves
+every query: on the card in one launch of the resolve entry, with no host
+sync, on the CPU through the oracle.  ``lookup_indices_batch`` is the numpy-in / numpy-out
 entry of the storage engine's batched read path (``TideDB.multi_get``).
 
 ``lookup_dispatch_count`` counts ``lookup_indices_batch`` dispatches since
@@ -18,8 +19,8 @@ import torch
 
 from ..build import on_card
 from ..padding import next_pow2
-from .kernel import optimistic_lookup
-from .ref import optimistic_lookup_ref, searchsorted_oracle
+from .kernel import optimistic_lookup, optimistic_lookup_resolve
+from .ref import lookup_indices_ref, optimistic_lookup_ref
 
 _PAD_KEY = np.uint32(0xFFFFFFFF)
 
@@ -42,17 +43,12 @@ def lookup_indices(queries: torch.Tensor, keys: torch.Tensor, *,
     """queries (Q,) uint32; keys (N,) uint32 sorted.  Returns (idx (Q,)
     int32, found (Q,) bool): idx is the rank of the first key equal to the
     query (insertion point when absent), kernel-resolved with the oracle
-    for the queries the kernel left unresolved — the op's own contract."""
-    idx, found, _ = lookup(queries, keys, window=window, max_iters=max_iters)
-    unresolved = idx < 0
-    if bool(unresolved.any()):
-        # Select through an int32 view: CUDA has no boolean indexing of
-        # uint32 tensors, and the oracle reads int32 as u32 bits.
-        ridx, rfound = searchsorted_oracle(
-            queries.view(torch.int32)[unresolved], keys)
-        idx[unresolved] = ridx
-        found[unresolved] = rfound
-    return idx, found
+    for the queries the rounds left unresolved — the op's own contract."""
+    if on_card(queries, "optimistic_lookup_resolve"):
+        return optimistic_lookup_resolve(queries, keys, window=window,
+                                         max_iters=max_iters)
+    return lookup_indices_ref(queries, keys, window=window,
+                              max_iters=max_iters)
 
 
 def lookup_indices_batch(queries: np.ndarray, keys: np.ndarray, *,

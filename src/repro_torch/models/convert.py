@@ -37,12 +37,12 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """A parameter tree of numpy arrays → the same tree of tensors."""
     return _map(tree, lambda a: _leaf(a, device))
 
 
-def cache_from_numpy(cache: dict, device="cpu") -> dict:
+def cache_from_numpy(cache: dict, device="cuda") -> dict:
     """A serving cache of numpy arrays → the same cache of tensors."""
     return {k: _leaf(v, device) for k, v in cache.items()}
 

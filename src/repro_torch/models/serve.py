@@ -92,7 +92,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device="cpu") -> dict:
+               device="cuda") -> dict:
     cache = {k: torch.zeros(shape, dtype=dt, device=device)
              for k, (shape, dt) in cache_spec(cfg, batch, max_seq).items()}
     if "table" in cache:

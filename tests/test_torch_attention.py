@@ -133,7 +133,8 @@ def test_kvwal_init_cache_matches_jax():
     jspec, tspec = _spec_pair(n_layers=2, batch=3, max_seq=50, kv_heads=2,
                               entry_dim=4, block_size=8)
     assert tspec.arena_shape() == jspec.arena_shape()
-    jc, tc = jax_kvwal.init_cache(jspec), kvwal.init_cache(tspec)
+    jc = jax_kvwal.init_cache(jspec)
+    tc = kvwal.init_cache(tspec, device="cpu")
     assert set(jc) == set(tc)
     for k in jc:
         _eq(jc[k], tc[k])
@@ -172,7 +173,8 @@ def test_kvwal_write_prefill_matches_jax(S):
 def test_kvwal_prune_and_free_blocks_match_jax():
     jspec, tspec = _spec_pair(n_layers=1, batch=2, max_seq=64, kv_heads=1,
                               entry_dim=2, block_size=8)
-    jc, tc = jax_kvwal.init_cache(jspec), kvwal.init_cache(tspec)
+    jc = jax_kvwal.init_cache(jspec)
+    tc = kvwal.init_cache(tspec, device="cpu")
     for live in ([20, 7], [8, 8], [63, 17]):     # the watermark is monotonic
         jc = jax_kvwal.prune_below(jc, jnp.asarray(live, jnp.int32))
         tc = kvwal.prune_below(tc, torch.tensor(live, dtype=torch.int32))

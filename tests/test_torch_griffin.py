@@ -39,7 +39,7 @@ def _pair(**changes):
     tcfg = dataclasses.replace(get_config(ARCH, smoke=True), **changes)
     jparams = jax_T.init_params(jcfg, jax.random.PRNGKey(5))
     return jcfg, tcfg, jparams, params_from_numpy(
-        jax.tree.map(np.asarray, jparams))
+        jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 @pytest.mark.parametrize("L", [1, 2, 7, 64, 100])
@@ -132,7 +132,8 @@ def test_decode_from_a_jax_cache():
     _, jcache = jax_serve.prefill(jparams, jcfg,
                                   {"tokens": jnp.asarray(tokens[:, :23])},
                                   max_seq=32)
-    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache))
+    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache),
+                              device="cpu")
     want, jnext = jax_serve.decode_step(jparams, jcfg, jcache,
                                         jnp.asarray(tokens[:, 23]))
     got, tnext = serve.decode_step(tparams, tcfg, tcache,

@@ -187,3 +187,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         bloom_kernel.bloom_check(u, u, u)
     with pytest.raises(ValueError, match="card"):
         lookup_kernel.optimistic_lookup(u, u)
+    with pytest.raises(ValueError, match="card"):
+        lookup_kernel.optimistic_lookup_resolve(u, u)

@@ -25,7 +25,8 @@ from repro_torch.kernels.bloom_check.ref import (bloom_check_ragged_ref,
                                                  bloom_check_ref)
 from repro_torch.kernels.optimistic_lookup import kernel as lookup_kernel
 from repro_torch.kernels.optimistic_lookup import ops as lookup_ops
-from repro_torch.kernels.optimistic_lookup.ref import optimistic_lookup_ref
+from repro_torch.kernels.optimistic_lookup.ref import (
+    lookup_indices_ref, optimistic_lookup_ref, optimistic_lookup_search)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_scan as ssd_scan_ref
@@ -93,6 +94,20 @@ def _lookup_case(kind, seed):
         queries = np.concatenate([keys[:64], keys[-40:],
                                   np.arange(2**31, 2**31 + 4096, 64,
                                             dtype=np.uint32)])
+    elif kind == "edges":
+        # Keys inside [2^24, 2^31): queries below the first key, above the
+        # last and at both ends of the u32 range.
+        keys = np.unique(rng.integers(2**24, 2**31, 3000, dtype=np.uint32))
+        queries = np.concatenate([
+            rng.choice(keys, 32),
+            np.uint32([keys[0] - 1, keys[0] // 2, keys[-1] + 1,
+                       (int(keys[-1]) + 2**32) // 2])])
+    elif kind == "all_equal":
+        v = np.uint32(rng.integers(1, 2**32 - 1))
+        keys = np.full(3000, v, np.uint32)
+        queries = np.concatenate([np.uint32([v, v - 1, v + 1] * 4),
+                                  rng.integers(0, 2**32, 16,
+                                               dtype=np.uint32)])
     elif kind == "equal_prefix":
         # Runs of equal u32 prefixes, as colliding key prefixes give.
         base = np.unique(rng.integers(0, 2**32, 900, dtype=np.uint32))
@@ -108,6 +123,20 @@ def _lookup_case(kind, seed):
     edges = np.uint32([0, 1, 0xFFFFFFFF, 0xFFFFFFFE, keys[0], keys[-1]])
     return keys.astype(np.uint32), np.concatenate([queries,
                                                    edges]).astype(np.uint32)
+
+
+# The lookup's cases, (keys, window, max_iters): the seven of the JAX
+# comparison; windows about the 32 lanes and about the one-load segment,
+# which holds ceil((W-1)/31) - 1 keys, at most 32 up to W = 1024; N < W; no
+# rounds at all; queries at and beyond both ends; every key equal.
+LOOKUP_CASES = [
+    (1000, 128, 4), (20000, 512, 4), (50000, 2048, 4), (300, 512, 4),
+    (4096, 800, 4), ("clustered", 128, 2), ("equal_prefix", 64, 4),
+    (20000, 1, 4), (20000, 31, 4), (20000, 32, 4), (20000, 33, 4),
+    (20000, 993, 4), (20000, 994, 4), (20000, 1024, 4), (20000, 1025, 4),
+    (700, 993, 4), (20000, 512, 0), ("edges", 64, 4), ("edges", 800, 1),
+    ("all_equal", 32, 4), ("all_equal", 800, 4),
+]
 
 
 def _tide_case(seed, B, H, KH, dk, dv, NB, blk, lens, live):
@@ -200,14 +229,74 @@ def test_lookup_indices_batch_on_card(card, kind, window, max_iters):
     """The numpy entry on the card, oracle fallback included, equals the
     same entry on the CPU."""
     keys, queries = _lookup_case(kind, 9)
-    before = lookup_kernel.launches["optimistic_lookup"]
+    before = lookup_kernel.launches["optimistic_lookup_resolve"]
     got = lookup_ops.lookup_indices_batch(queries, keys, window=window,
                                           max_iters=max_iters, device="cuda")
-    assert lookup_kernel.launches["optimistic_lookup"] == before + 1
+    assert lookup_kernel.launches["optimistic_lookup_resolve"] == before + 1
     want = lookup_ops.lookup_indices_batch(queries, keys, window=window,
                                            max_iters=max_iters, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,window,max_iters", LOOKUP_CASES)
+def test_lookup_entries_on_card(card, kind, window, max_iters):
+    """Both entries of the lookup kernel on every case of the CPU search
+    test: the raw one equal to the TPU kernel's arithmetic and to the
+    search mirror, the resolve one to the plain version with the oracle."""
+    keys, queries = _lookup_case(kind, 11)
+    q, k = _t(queries).to(card), _t(keys).to(card)
+    kw = dict(window=window, max_iters=max_iters)
+    before = dict(lookup_kernel.launches)
+    got = lookup_kernel.optimistic_lookup(q, k, **kw)
+    resolved = lookup_kernel.optimistic_lookup_resolve(q, k, **kw)
+    torch.cuda.synchronize()
+    for name in ("optimistic_lookup", "optimistic_lookup_resolve"):
+        assert lookup_kernel.launches[name] == before[name] + 1, name
+    for g, w, m in zip(got, optimistic_lookup_ref(q, k, **kw),
+                       optimistic_lookup_search(q, k, **kw)):
+        assert torch.equal(g, w) and torch.equal(g, m)
+    for g, w in zip(resolved, lookup_indices_ref(q, k, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_lookup_indices_does_not_sync_on_card(card):
+    """On CUDA tensors ``lookup_indices`` is one launch of the resolve
+    entry: no host sync (which the sync debug mode turns into an error),
+    even with unresolved queries."""
+    keys, queries = _lookup_case("clustered", 9)
+    q, k = _t(queries).to(card), _t(keys).to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, found = lookup_ops.lookup_indices(q, k, window=128, max_iters=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    raw = lookup_kernel.optimistic_lookup(q, k, window=128, max_iters=2)
+    assert bool((raw[0] < 0).any())
+    want = lookup_indices_ref(q, k, window=128, max_iters=2)
+    assert torch.equal(idx, want[0]) and torch.equal(found, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 7, 8])
+def test_bloom_kernels_every_k_on_card(card, k):
+    """A and B gather all k words before testing a bit: every k of the
+    unrolled group, moduli that are no power of two (the u32 wrap shows)."""
+    h1, h2, off, nb, bits = _ragged_case(
+        k, [64, 40, 100, 2], [300, 60, 500, 1], [2000, 1111, 3171, 37], 500,
+        k=k)
+    assert k == 1 or _wraps(h1, h2, nb.astype(np.int64), k)
+    args = [_t(a).to(card) for a in (h1, h2, off, nb, bits)]
+    got = bloom_kernel.bloom_check_ragged(*args, k=k)
+    assert torch.equal(got, bloom_check_ragged_ref(*args, k=k))
+    first = int(np.searchsorted(off, 64))        # the first cell's queries
+    one = [a[:first] for a in args[:2]] + [args[4][:64]]
+    got = bloom_kernel.bloom_check(*one, k=k, nbits=2000)
+    assert torch.equal(got, bloom_check_ref(*one, k=k, nbits=2000))
+    assert got[:300].all()                        # no false negatives
 
 
 @pytest.mark.cuda

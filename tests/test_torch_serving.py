@@ -42,7 +42,7 @@ def _pair(arch, **changes):
     tcfg = dataclasses.replace(get_config(arch, smoke=True), **changes)
     jparams = jax_T.init_params(jcfg, jax.random.PRNGKey(7))
     return jcfg, tcfg, jparams, params_from_numpy(
-        jax.tree.map(np.asarray, jparams))
+        jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _np(x):
@@ -155,7 +155,8 @@ def test_decode_from_a_jax_cache():
     _, jcache = jax_serve.prefill(jparams, jcfg,
                                   {"tokens": jnp.asarray(tokens[:, :8])},
                                   max_seq=32)
-    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache))
+    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache),
+                              device="cpu")
     want, _ = jax_serve.decode_step(jparams, jcfg, jcache,
                                     jnp.asarray(tokens[:, 8]))
     got, _ = serve.decode_step(tparams, tcfg, tcache,

@@ -79,7 +79,7 @@ def _pair(**changes):
     tcfg = dataclasses.replace(get_config(ARCH, smoke=True), **changes)
     jparams = jax_T.init_params(jcfg, jax.random.PRNGKey(11))
     return jcfg, tcfg, jparams, params_from_numpy(
-        jax.tree.map(np.asarray, jparams))
+        jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def test_ssm_block_matches_jax():
@@ -155,7 +155,8 @@ def test_decode_from_a_jax_cache():
     _, jcache = jax_serve.prefill(jparams, jcfg,
                                   {"tokens": jnp.asarray(tokens[:, :9])},
                                   max_seq=16)
-    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache))
+    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache),
+                              device="cpu")
     want, _ = jax_serve.decode_step(jparams, jcfg, jcache,
                                     jnp.asarray(tokens[:, 9]))
     got, _ = serve.decode_step(tparams, tcfg, tcache,
