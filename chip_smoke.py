@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch/CUDA port of Tidehunter: the storage path,
-KV-WAL decode serving of Llama-3-8B, Mamba-2 serving and RecurrentGemma
-decode through the KV-WAL's window and pruning.
+"""Chip check of the PyTorch/CUDA port of Tidehunter: the storage path, the
+sharded storage server, KV-WAL decode serving of Llama-3-8B, Mamba-2 serving
+and RecurrentGemma decode through the KV-WAL's window and pruning.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -67,6 +67,21 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
 7. RecurrentGemma's SMOKE config on the card (fp32, KV blocks of 8
    positions, window 16): the same path, its decode step held against the
    plain version at 2e-4.
+8. The sharded storage server (run right after phase 3): ``KvBatchServer``
+   over ``ShardedTideDB(n_shards=4, replication=2)`` with the same N keys
+   and values: every key put through the server in batches of 4096, a
+   seeded stream of 65536 requests (50% get, 25% exists, half of them on
+   absent keys, 20% overwriting put, 5% delete) checked against scalar
+   execution, with its ops/s and the p50/p99 of each request's time from
+   submit to done; flush, close, then ``multi_exists`` on 32768 keys and
+   ``multi_get`` on 8192, each route after its own reopen: the default
+   (the host path on a multi-shard store) and ``use_kernel=True``, where
+   the 4 shard threads launch the Bloom probe and the lookup at once, one
+   of each a touched shard for ``multi_exists`` and one lookup a shard for
+   ``multi_get`` (the script fails on any other count).  Then one flipped
+   value byte in a key's primary copy: the server's get must fail over to
+   the replica, and ``repair()`` must restore the copy and clear the
+   quarantine.
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -77,6 +92,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -98,6 +114,10 @@ L2_BYTES = 50 << 20            # H100 L2 cache
 EXISTS_KEYS = 32768
 GET_KEYS = 8192
 BATCH = 4096
+N_SHARDS = 4                   # the reference's sharded engine
+REPLICATION = 2                # its self-healing benchmark's setting
+SERVER_BATCH = 4096
+MIXED_REQUESTS = 65536
 
 
 def fail(msg: str) -> None:
@@ -1300,6 +1320,222 @@ def main_path(n_keys: int, seed: int, workdir: str,
     return res
 
 
+def _dispatches() -> dict:
+    """The ops' dispatch counts, which count on either device."""
+    from repro_torch.kernels.bloom_check import ops as bops
+    from repro_torch.kernels.optimistic_lookup import ops as lops
+    return {"bloom_check_ragged": bops.ragged_dispatch_count,
+            "optimistic_lookup_resolve": lops.lookup_dispatch_count}
+
+
+def _mixed_stream(rng, keys, absent, n: int) -> list[tuple]:
+    """``n`` seeded requests: 50% get, 25% exists (half on absent keys),
+    20% put that overwrites with a new 1 KiB value, 5% delete."""
+    kinds = rng.choice(4, n, p=[0.50, 0.25, 0.20, 0.05])
+    pick = rng.integers(0, len(keys), n)
+    miss = rng.integers(0, len(absent), n)
+    out_of_set = rng.random(n) < 0.5
+    ops = []
+    for i in range(n):
+        key = keys[pick[i]]
+        if kinds[i] == 0:
+            ops.append(("get", key))
+        elif kinds[i] == 1:
+            ops.append(("exists", absent[miss[i]] if out_of_set[i] else key))
+        elif kinds[i] == 2:
+            ops.append(("put", key, (key[:28] + i.to_bytes(4, "little"))
+                        * 32))
+        else:
+            ops.append(("delete", key))
+    return ops
+
+
+def sharded_phase(n_keys: int, seed: int, workdir: str,
+                  device: str = "cuda") -> dict:
+    """Phase 8: ``KvBatchServer`` over ``ShardedTideDB(n_shards=4,
+    replication=2)``, every answer checked against what was written.
+
+    Bulk load through the server, a seeded mixed stream in waves of the
+    server's batch (each answer against a dict run in submission order:
+    scalar semantics), flush and close, then the batched reads twice, each
+    after a fresh reopen (cells UNLOADED, nothing memoized or cached): at
+    the default route and with ``ReadOptions(use_kernel=True)``.  Then a
+    flipped value byte in a key's primary copy: the server's get fails over
+    to the replica, and ``repair()`` restores the copy."""
+    import torch
+    from repro_torch.core.tidestore import (DbConfig, KeyspaceConfig,
+                                            ReadOptions, ShardedTideDB,
+                                            read_repair_table)
+    from repro_torch.core.tidestore.wal import HEADER_SIZE, _ENTRY_HDR
+    from repro_torch.serving.kv_server import KvBatchServer
+    rep = 1024 // 32                   # value = key x 32: 1 KiB, checkable
+    tag = b"tidehunter-sharded-%d:" % seed
+    keys = make_keys(n_keys, tag)
+    absent = make_keys(EXISTS_KEYS // 2, tag + b"absent")
+    rng = np.random.default_rng(seed)
+    cfg = DbConfig(keyspaces=[KeyspaceConfig("kv", n_cells=256)],
+                   device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def open_store():
+        return ShardedTideDB(workdir, cfg, n_shards=N_SHARDS,
+                             replication=REPLICATION)
+
+    res = {"keys": n_keys, "value_bytes": 32 * rep, "shards": N_SHARDS,
+           "replication": REPLICATION, "max_batch": SERVER_BATCH}
+    reset_launches()
+    sdb = open_store()
+    srv = KvBatchServer(sdb, max_batch=SERVER_BATCH)
+    t0 = time.perf_counter()
+    for i in range(0, n_keys, SERVER_BATCH):
+        reqs = [srv.submit_put(k, k * rep, keyspace="kv")
+                for k in keys[i:i + SERVER_BATCH]]
+        while srv.step():
+            pass
+        if any(r.error is not None or not r.done for r in reqs):
+            fail("a bulk-load put through the server failed")
+    res["server_put_s"] = time.perf_counter() - t0
+    res["server_put_ops_s"] = n_keys / res["server_put_s"]
+
+    state = {k: k * rep for k in keys}            # the scalar oracle
+    stream = _mixed_stream(rng, keys, absent, MIXED_REQUESTS)
+    submit = {"get": srv.submit_get, "exists": srv.submit_exists,
+              "delete": srv.submit_delete}
+    sojourn, wrong = [], 0
+    t0 = time.perf_counter()
+    for i in range(0, len(stream), SERVER_BATCH):
+        wave = stream[i:i + SERVER_BATCH]
+        reqs = [srv.submit_put(op[1], op[2], keyspace="kv")
+                if op[0] == "put" else submit[op[0]](op[1], keyspace="kv")
+                for op in wave]
+        while srv.step():
+            pass
+        for op, r in zip(wave, reqs):
+            if op[0] == "put":
+                state[op[1]] = op[2]
+            elif op[0] == "delete":
+                state[op[1]] = None
+            else:
+                want = state.get(op[1])
+                want = want is not None if op[0] == "exists" else want
+                wrong += r.error is not None or r.result() != want
+            sojourn.append(r.t_done - r.t_submit)
+    res["mixed_s"] = time.perf_counter() - t0
+    if wrong:
+        fail(f"{wrong} mixed-stream answers differ from scalar execution")
+    res.update(
+        mixed_requests=len(stream),
+        mixed_ops_s=len(stream) / res["mixed_s"],
+        sojourn_p50_ms=1e3 * float(np.percentile(sojourn, 50)),
+        sojourn_p99_ms=1e3 * float(np.percentile(sojourn, 99)),
+        server=srv.stats())
+    t0 = time.perf_counter()
+    sdb.flush()
+    sdb.close()
+    res["flush_close_s"] = time.perf_counter() - t0
+
+    live = [k for k in keys if state[k] is not None]
+    present = [live[i] for i in rng.choice(len(live), EXISTS_KEYS // 2,
+                                           replace=False)]
+    probe = present + absent
+    gkeys = [live[i] for i in rng.choice(len(live), GET_KEYS,
+                                         replace=False)]
+    want_get = [state[k] for k in gkeys]
+    # Each route twice, in the order default, kernel, kernel, default, each
+    # run after its own reopen (cells UNLOADED, nothing memoized).
+    runs = {"default": [], "use_kernel": []}
+    sdb = None
+    for route in ("default", "use_kernel", "use_kernel", "default"):
+        opts = ReadOptions(use_kernel=True) if route == "use_kernel" else None
+        if sdb is not None:
+            sdb.close()
+        sdb = open_store()
+        calls = {}
+        for name, call, n, want in (
+                ("multi_exists", lambda: sdb.multi_exists(
+                    probe, keyspace="kv", opts=opts), len(probe),
+                 [True] * len(present) + [False] * len(absent)),
+                ("multi_get", lambda: sdb.multi_get(
+                    gkeys, keyspace="kv", opts=opts), len(gkeys), want_get)):
+            launched, before = read_launches(), _dispatches()
+            t0 = time.perf_counter()
+            got = call()
+            sync()
+            dt = time.perf_counter() - t0
+            if got != want:
+                fail(f"sharded {name} ({route}) differs from what was "
+                     f"written")
+            calls[name] = {
+                "s": dt, "ops_s": n / dt,
+                "launches": {k: v - launched[k] for k, v in
+                             read_launches().items() if v - launched[k]},
+                "dispatches": {k: v - before[k]
+                               for k, v in _dispatches().items()}}
+        runs[route].append(calls)
+    touched = len({sdb.shard_of(k) for k in probe})
+    touched_get = len({sdb.shard_of(k) for k in gkeys})
+    # With use_kernel=True each touched shard launches B and C once for
+    # multi_exists; multi_get launches C once a shard and no B: 2048 gets a
+    # shard over 64 cells is 32 a cell, under bloom.py's 64.
+    want = {"default": {"multi_exists": {}, "multi_get": {}},
+            "use_kernel": {
+                "multi_exists": {"bloom_check_ragged": touched,
+                                 "optimistic_lookup_resolve": touched},
+                "multi_get": {"optimistic_lookup_resolve": touched_get}}}
+    for route, calls_list in runs.items():
+        for calls in calls_list:
+            for name, c in calls.items():
+                counted = {k: v for k, v in c["dispatches"].items() if v}
+                if counted != want[route][name]:
+                    fail(f"sharded {name} ({route}) dispatched {counted}, "
+                         f"not {want[route][name]}")
+                if device == "cuda" and c["launches"] != want[route][name]:
+                    fail(f"sharded {name} ({route}) launched "
+                         f"{c['launches']}, not {want[route][name]}")
+    res["routes"] = {route: {name: {
+        "ops_s": [c[name]["ops_s"] for c in calls_list],
+        "s": [c[name]["s"] for c in calls_list],
+        "launches": calls_list[0][name]["launches"]}
+        for name in ("multi_exists", "multi_get")}
+        for route, calls_list in runs.items()}
+
+    # Failover and repair: one flipped value byte in a key's primary copy.
+    key = gkeys[0]
+    prim = sdb.shards[sdb.shard_of(key)]
+    pos = prim.table.get_position(prim._ks_id("kv"), key)
+    wal = prim.value_wal
+    off = (pos % wal.cfg.segment_size + HEADER_SIZE + _ENTRY_HDR.size
+           + len(key) + 1)
+    fd = wal._fd(pos // wal.cfg.segment_size)
+    os.pwrite(fd, bytes([os.pread(fd, 1, off)[0] ^ 0x5A]), off)
+    sdb.clear_caches()
+    srv = KvBatchServer(sdb, max_batch=SERVER_BATCH)
+    r = srv.submit_get(key, keyspace="kv")
+    srv.step()
+    failovers = prim.metrics.read_failovers
+    if r.result() != state[key] or failovers < 1:
+        fail(f"a corrupt primary copy did not fail over (value ok: "
+             f"{r.result() == state[key]}, read_failovers {failovers})")
+    if pos not in wal.quarantined():
+        fail("the corrupt primary copy was not quarantined")
+    repaired = sdb.repair()
+    strict = ReadOptions(strict_errors=True, fill_cache=False)
+    sdb.clear_caches()
+    table = read_repair_table(sdb)
+    if (repaired["repaired"] != 1 or any(sh.value_wal.quarantined()
+                                         for sh in sdb.shards)
+            or prim.get(key, keyspace="kv", opts=strict) != state[key]
+            or table["summary"]["repair_appends"] < 1):
+        fail(f"repair did not restore the primary copy: {repaired}, "
+             f"{table['summary']}")
+    res.update(read_failovers=failovers, repair=repaired,
+               repair_table=table["summary"],
+               value_wal_bytes=sum(sh.value_wal.tail for sh in sdb.shards))
+    res["launches"] = read_launches()
+    sdb.close()
+    return res
+
+
 def profile_reads(db, probe, gkeys) -> dict:
     """Warm read passes: one under torch.profiler (wall time, the device
     time of every kernel and copy, their sum, and the kernels launched, by
@@ -1351,7 +1587,7 @@ def card_line() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=1 << 20,
-                    help="keys written on the main path (default 2^20)")
+                    help="keys written on the storage paths (default 2^20)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1392,7 +1628,7 @@ def main() -> None:
     say(f"kernel phase: {json.dumps(kernels)}")
 
     if args.keys < 1 << 20:
-        say(f"main path cut to {args.keys} keys (from 2^20)")
+        say(f"storage paths cut to {args.keys} keys (from 2^20)")
     (ROOT / "build").mkdir(exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="tidedb-smoke-", dir=ROOT / "build")
     try:
@@ -1406,6 +1642,28 @@ def main() -> None:
     for name in ("bloom_check_ragged", "optimistic_lookup_resolve"):
         if path["launches"][name] < 1:
             fail(f"the main path never launched {name}")
+
+    workdir = tempfile.mkdtemp(prefix="tidedb-sharded-", dir=ROOT / "build")
+    try:
+        sharded = sharded_phase(args.keys, args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say(f"sharded server [{card}]: {json.dumps(sharded)}")
+    r = sharded["routes"]
+
+    def both(name):
+        return " / ".join(
+            "[" + ", ".join(f"{x:.0f}" for x in r[route][name]["ops_s"]) + "]"
+            for route in ("default", "use_kernel"))
+
+    say(f"sharded server [{card}]: {N_SHARDS} shards x{REPLICATION}, "
+        f"server put {sharded['server_put_ops_s']:.0f} ops/s, mixed "
+        f"{sharded['mixed_ops_s']:.0f} ops/s (sojourn p50 "
+        f"{sharded['sojourn_p50_ms']:.1f} ms, p99 "
+        f"{sharded['sojourn_p99_ms']:.1f} ms), flush and close "
+        f"{sharded['flush_close_s']:.1f} s; ops/s default / use_kernel: "
+        f"multi_exists {both('multi_exists')}, multi_get "
+        f"{both('multi_get')}")
 
     served = serve_phase(args.seed)
     say(f"serving path [{card}]: {json.dumps(served)}")
@@ -1435,7 +1693,9 @@ def main() -> None:
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
-    by_path = {"storage": path["launches"], "llama3-8b": served["launches"],
+    by_path = {"storage": path["launches"],
+               "sharded-server": sharded["launches"],
+               "llama3-8b": served["launches"],
                "mamba2-1.3b": mamba["launches"],
                "recurrentgemma-9b": griffin["launches"],
                "recurrentgemma-9b-smoke": griffin_smoke["launches"]}

@@ -12,7 +12,13 @@ from .index import (HeaderLookup, OptimisticLookup, serialize_header,
                     serialize_optimistic)
 from .large_table import CellState, KeyspaceConfig, LargeTable
 from .relocate import Decision, PruneController, PruneThread, Relocator
+from .repair import RepairController, read_repair_table
 from .scrub import ScrubConfig, Scrubber, ScrubThread, read_scrub_table
+from .shard import ShardedTideDB
+from .simulate import (CrashPointIo, ShadowModel, SimulatedCrash, TraceOp,
+                       apply_op, explore_repair_trace, explore_sharded_trace,
+                       explore_trace, explorer_config, generate_repair_trace,
+                       generate_trace, run_trace)
 from .system import (SYSTEM_KEYSPACE, SYSTEM_KS_ID, CopierGovernor,
                      StatsCollector,
                      decode_row_key, read_tables, row_key,
@@ -21,7 +27,7 @@ from .util import Metrics, PositionTracker
 from .wal import CopyPool, Wal, WalConfig
 
 __all__ = [
-    "TideDB", "DbConfig", "KeyspaceConfig", "CellState",
+    "TideDB", "ShardedTideDB", "DbConfig", "KeyspaceConfig", "CellState",
     "LargeTable", "Engine", "KeyspaceHandle", "WriteBatch", "ReadOptions",
     "WriteOptions", "PruneOptions", "Wal", "WalConfig", "CopyPool",
     "Relocator", "PruneController", "PruneThread", "Decision",
@@ -35,4 +41,9 @@ __all__ = [
     "WalReadError", "CorruptionError", "TornRecordError", "WalHoleError",
     "UnrepairedHoleError", "DegradedError", "KeyWidthError",
     "Scrubber", "ScrubThread", "ScrubConfig", "read_scrub_table",
+    "RepairController", "read_repair_table",
+    "SimulatedCrash", "CrashPointIo", "ShadowModel", "TraceOp",
+    "generate_trace", "run_trace", "apply_op", "explorer_config",
+    "explore_trace", "explore_sharded_trace",
+    "generate_repair_trace", "explore_repair_trace",
 ]

@@ -20,7 +20,6 @@ from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import msgpack
-import torch
 
 from .api import (KeyspaceHandle, PruneOptions, ReadOptions, WriteBatch,
                   WriteOptions, coerce_batch)
@@ -109,17 +108,25 @@ class DbConfig:
                                            # PyTorch versions (tests)
 
 
+def check_device(cfg: DbConfig) -> None:
+    """Refuse a CUDA ``device`` when no card is available, before any I/O.
+    PyTorch is imported here, not with the module, so the host engine and
+    the KV server import without it."""
+    import torch
+    if torch.device(cfg.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(
+            f"DbConfig(device={cfg.device!r}) needs a CUDA card and none is "
+            f"available; pass device='cpu' to run the kernels' plain "
+            f"versions on the host")
+
+
 class TideDB:
     def __init__(self, path: str, config: Optional[DbConfig] = None, *,
                  copy_pool: Optional[CopyPool] = None):
         self.path = path
         self.cfg = config or DbConfig()
-        if torch.device(self.cfg.device).type == "cuda" and \
-                not torch.cuda.is_available():
-            raise RuntimeError(
-                f"DbConfig(device={self.cfg.device!r}) needs a CUDA card and "
-                f"none is available; pass device='cpu' to run the kernels' "
-                f"plain versions on the host")
+        check_device(self.cfg)
         os.makedirs(path, exist_ok=True)
         self.metrics = Metrics()
         self._io = self.cfg.io or DEFAULT_IO

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from ..build import check, check_tensor, load, stream_arg
+from ..build import check, check_tensor, count_launch, load, stream_arg
 
 launches = {"bloom_check": 0, "bloom_check_ragged": 0}
 
@@ -61,7 +61,7 @@ def bloom_check_ragged(h1: torch.Tensor, h2: torch.Tensor, off: torch.Tensor,
             h1.data_ptr(), h2.data_ptr(), off.data_ptr(), nbits.data_ptr(),
             bits.data_ptr(), out.data_ptr(), q, k, stream_arg(h1))
     check(lib, err, "bloom_check_ragged launch")
-    launches["bloom_check_ragged"] += 1
+    count_launch(launches, "bloom_check_ragged")
     return out
 
 
@@ -86,5 +86,5 @@ def bloom_check(h1: torch.Tensor, h2: torch.Tensor, bits: torch.Tensor, *,
         err = lib.bloom_check(h1.data_ptr(), h2.data_ptr(), bits.data_ptr(),
                               out.data_ptr(), nbits, q, k, stream_arg(h1))
     check(lib, err, "bloom_check launch")
-    launches["bloom_check"] += 1
+    count_launch(launches, "bloom_check")
     return out

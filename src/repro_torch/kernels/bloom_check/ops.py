@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..build import on_card
+from ..build import count_lock, on_card
 from ..padding import next_pow2
 from .kernel import bloom_check, bloom_check_ragged
 from .ref import bloom_check_ragged_ref, bloom_check_ref
@@ -101,7 +101,8 @@ def probe_cells_batch(h1: np.ndarray, h2: np.ndarray, off: np.ndarray,
     if wp != bits.shape[0]:
         bits = np.concatenate([bits, np.zeros(wp - bits.shape[0], np.uint32)])
     global ragged_dispatch_count
-    ragged_dispatch_count += 1
+    with count_lock:
+        ragged_dispatch_count += 1
     out = probe_ragged(_to(h1, np.uint32, device), _to(h2, np.uint32, device),
                        _to(off, np.int32, device), _to(nbits, np.uint32, device),
                        _to(bits, np.uint32, device), k=k)

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+count_lock = threading.Lock()     # guards every launch and dispatch count
 
 
 def build_dir() -> Path:
@@ -107,6 +108,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
+
+
+def count_launch(counts: dict, *names: str) -> None:
+    """Add one to each ``counts[name]``, under one lock: a sharded store's
+    threads launch at once, and ``+=`` on a dict entry is a read, an add
+    and a store that another thread can interleave and lose."""
+    with count_lock:
+        for name in names:
+            counts[name] += 1
 
 
 def stream_arg(t) -> ctypes.c_void_p:

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ..build import check, check_tensor, load, stream_arg
+from ..build import check, check_tensor, count_launch, load, stream_arg
 
 launches = {"optimistic_lookup": 0, "optimistic_lookup_resolve": 0}
 
@@ -73,7 +73,7 @@ def optimistic_lookup(queries: torch.Tensor, keys: torch.Tensor, *,
             found.data_ptr(), iters.data_ptr(), q, n, window, max_iters,
             stream_arg(queries))
     check(lib, err, "optimistic_lookup launch")
-    launches["optimistic_lookup"] += 1
+    count_launch(launches, "optimistic_lookup")
     return idx, found, iters
 
 
@@ -94,5 +94,5 @@ def optimistic_lookup_resolve(queries: torch.Tensor, keys: torch.Tensor, *,
             queries.data_ptr(), keys.data_ptr(), idx.data_ptr(),
             found.data_ptr(), q, n, window, max_iters, stream_arg(queries))
     check(lib, err, "optimistic_lookup_resolve launch")
-    launches["optimistic_lookup_resolve"] += 1
+    count_launch(launches, "optimistic_lookup_resolve")
     return idx, found

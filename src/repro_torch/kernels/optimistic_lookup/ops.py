@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..build import on_card
+from ..build import count_lock, on_card
 from ..padding import next_pow2
 from .kernel import optimistic_lookup, optimistic_lookup_resolve
 from .ref import lookup_indices_ref, optimistic_lookup_ref
@@ -73,7 +73,8 @@ def lookup_indices_batch(queries: np.ndarray, keys: np.ndarray, *,
     if np_ != n:
         keys = np.concatenate([keys, np.full(np_ - n, _PAD_KEY, np.uint32)])
     global lookup_dispatch_count
-    lookup_dispatch_count += 1
+    with count_lock:
+        lookup_dispatch_count += 1
     qt = torch.from_numpy(np.ascontiguousarray(queries, np.uint32)).to(device)
     kt = torch.from_numpy(np.ascontiguousarray(keys, np.uint32)).to(device)
     idx, found = lookup_indices(qt, kt, window=window, max_iters=max_iters)

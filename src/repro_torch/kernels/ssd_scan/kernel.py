@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from ..build import check, check_tensor, load, stream_arg
+from ..build import check, check_tensor, count_launch, load, stream_arg
 
 launches = {"ssd_scan": 0, "ssd_scan_states": 0, "ssd_scan_pass": 0,
             "ssd_scan_split": 0}
@@ -142,9 +142,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             sc["prev"].data_ptr(), None if parts is None else
             parts.data_ptr(), b, l, h, p, n, chunk, stream_arg(x))
     check(lib, err, "ssd_scan launch")
-    if dtype == torch.float32:
-        launches["ssd_scan_split"] += 1
-    launches["ssd_scan_states"] += 1
-    launches["ssd_scan_pass"] += 1
-    launches["ssd_scan"] += 1
+    count_launch(launches, "ssd_scan_states", "ssd_scan_pass", "ssd_scan",
+                 *(("ssd_scan_split",) if dtype == torch.float32 else ()))
     return y, state

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from ..build import check, check_tensor, load, stream_arg
+from ..build import check, check_tensor, count_launch, load, stream_arg
 
 launches = {"tide_attention": 0, "tide_attention_combine": 0}
 
@@ -154,7 +154,6 @@ def tide_attention(q: torch.Tensor, arena_k: torch.Tensor,
             out.data_ptr(), ml, acc, B, H, KH, NB, blk, dk, dv, window, S, R,
             scale, stream_arg(q))
     check(lib, err, "tide_attention launch")
-    launches["tide_attention"] += 1
-    if S > 1:
-        launches["tide_attention_combine"] += 1
+    count_launch(launches, "tide_attention",
+                 *(("tide_attention_combine",) if S > 1 else ()))
     return out

@@ -11,7 +11,8 @@ This is the JAX package's ``ServingEngine`` (``repro/serving/engine.py``)
 for the dense family.  Greedy decoding picks the same tokens as the JAX
 engine's; temperature sampling draws from a ``torch.Generator`` seeded from
 ``seed`` and so draws other tokens than JAX's generator.  The storage-side
-``KvBatchServer`` is not ported yet.
+``KvBatchServer`` lives in ``kv_server`` (it needs neither PyTorch nor the
+model stack) and is re-exported here, where the JAX package has it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ from repro_torch.models import serve as serve_mod
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.convert import cast_weights
 from repro_torch.models.transformer import DENSE_FAMILIES, require_family
+from repro_torch.serving.kv_server import KvBatchServer, KvRead, KvWrite
+
+__all__ = ["Request", "ServingEngine", "KvBatchServer", "KvRead", "KvWrite"]
 
 
 @dataclasses.dataclass

@@ -35,6 +35,10 @@ def test_imports_neither_jax_nor_repro():
     assert "repro_torch.models.griffin" in mods
     assert "repro_torch.models.serve" in mods
     assert "repro_torch.serving.engine" in mods
+    for mod in ("core.tidestore.shard", "core.tidestore.repair",
+                "core.tidestore.simulate", "serving.admission",
+                "serving.kv_server"):
+        assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -47,6 +51,29 @@ def test_imports_neither_jax_nor_repro():
                          text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(PKG.parent)})
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kv_server_needs_neither_torch_nor_the_model_stack():
+    """The storage server imports the host engine only: PyTorch loads when
+    a store first checks its device or launches a kernel."""
+    code = (
+        "import sys\n"
+        "from repro_torch.serving.kv_server import KvBatchServer\n"
+        "from repro_torch.core.tidestore import ShardedTideDB\n"
+        "bad = sorted(m for m in sys.modules if m == 'torch' or "
+        "m.startswith('repro_torch.models'))\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sharded_exports_match_the_reference():
+    """The port's storage package exports the reference's names."""
+    import repro.core.tidestore as ref
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
 
 
 def test_default_device_needs_a_card(tmp_path, monkeypatch):
