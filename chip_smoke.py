@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port of Tidehunter: the storage path, the
-sharded storage server, KV-WAL decode serving of Llama-3-8B, Mamba-2 serving
-and RecurrentGemma decode through the KV-WAL's window and pruning.
+sharded storage server, KV-WAL decode serving of Llama-3-8B and
+Qwen2-MoE-A2.7B, Mamba-2 serving, RecurrentGemma decode through the
+KV-WAL's window and pruning, DeepSeek-V3's MLA over the latent arena, and
+whisper's encoder-decoder.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -21,14 +23,17 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    cold and warm; tide_attention at
    Llama-3-8B and RecurrentGemma-9B decode shapes in bf16 (2e-2, and 4e-3
    absolute) and fp32 (2e-5), with a pruned row, sliding windows and two
-   empty rows that must be exactly 0, and the Llama shape in KV blocks of 8
-   and 24 positions (tiles that span blocks); ssd_scan at Mamba-2-1.3B
-   widths (8 x 2048, a ragged 1000 with an initial state, 100 < chunk) in
-   fp32 (3e-4) and bf16 (mean-error rule, and within one bf16 ulp of the
-   kernel's rounding mirrored in plain ops).  Times from CUDA events (median
-   of 30) beside the plain version, the library call where one exists, and
-   the least time the card allows for this run's data (its memory rate or
-   its peak rate for the operations' type), and the launch floor: the time
+   empty rows that must be exactly 0, the Llama shape in KV blocks of 8
+   and 24 positions (tiles that span blocks), and the group-1 shapes of
+   Qwen2-MoE-A2.7B (H = KH = 16, d 128) and whisper's decoder (H = KH =
+   20, d 64), each with a pruned row and two empty rows; ssd_scan at
+   Mamba-2-1.3B widths (8 x 2048, a ragged 1000 with an initial state,
+   100 < chunk) in fp32 (3e-4) and bf16 (mean-error rule, and within one
+   bf16 ulp of the kernel's rounding mirrored in plain ops).  Times from
+   CUDA events (median of 30) beside the plain version, the library call
+   where one exists, and the least time the card allows for this run's
+   data (its memory rate or its peak rate for the operations' type), and
+   the launch floor: the time
    of a launched kernel that does no work (``torch.cuda._sleep(0)``, timed
    the same way, ``floor_ms`` on every row); ssd_scan also at one
    16384-token prompt, with the device time of each of its three passes
@@ -58,8 +63,8 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    profiles of a decode step and a prefill, and one prefill through the
    kernel and through its plain version (bf16 over 48 layers by the
    mean-error rule, fp32 over 4 layers at 2e-4).
-6. RecurrentGemma-9B at full width and depth (bf16, random weights, the
-   fp32 tree freed once cast): ``serve.prefill`` of 4 x 2560 tokens into
+6. RecurrentGemma-9B at full width and depth (bf16, random weights, each
+   fp32 leaf freed as it is cast): ``serve.prefill`` of 4 x 2560 tokens into
    4096-position arenas and 64 greedy decode steps (tide_attention once per
    attention block a step, window 2048, ``first_live`` ending at 512), the
    profile of a decode step, and one decode step through the kernel and
@@ -82,6 +87,27 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    value byte in a key's primary copy: the server's get must fail over to
    the replica, and ``repair()`` must restore the copy and clear the
    quarantine.
+9. Qwen2-MoE-A2.7B at full width and depth through ``ServingEngine`` (60
+   routed experts top-4 and 4 shared, GShard capacity dispatch): the
+   random fp32 weights cast to bf16 leaf by leaf (router and norm scales
+   kept), the peak of device memory below 80 GB, 16 greedy requests of
+   16-512 prompt tokens (one of 1024) and 32 new tokens over 8 slots of
+   2048 positions, tide_attention once a layer a step (24); a decode step
+   under torch.profiler split into D, the batched products (the MoE
+   dispatch and expert einsums), the other products and the rest; the bf16
+   step against the fp32 step by the mean rule, 4 layers in fp32 at 2e-4;
+   and the SMOKE config on the card against the host at 2e-4.
+10. DeepSeek-V3 at full width with its depth cut to 1 layer (13.7 B
+   parameters with the MTP module; the full model is 1.34 TB at bf16):
+   ``serve.prefill`` of 4 x 512 tokens, 16 greedy decode steps through
+   MLA's absorbed form over the 576-dim latent arena (no kernel: D stays
+   at 0), step times and peak bytes; the SMOKE config on the card against
+   the host.
+11. Whisper-large-v3 at full width and depth: 8 x 1500 random frames of
+   width 1280, a 4-token prompt, ``serve.prefill`` (encoder, decoder
+   prompt, cross K/V) and 32 greedy decode steps, tide_attention once a
+   decoder layer a step (32); the decode step's profile, kernel against
+   plain (bf16 rule), and the SMOKE config on the card against the host.
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -440,12 +466,14 @@ def _close(got, want, tol: float) -> float:
 # ---------------------------------------------------- kernel D: attention
 
 def _tide_shape(rng, dev, B, H, KH, d, NB, blk, lens, live, windows,
-                timed_window: int, empty_rows: bool) -> dict:
+                timed_window: int, empty_rows: bool,
+                empty=((0, 300, 700), (0, 384, 128))) -> dict:
     """tide_attention at one decode shape: bf16 (rtol 2e-2 and 4e-3
     absolute) and fp32 (2e-5) against the plain version at each window; with
-    ``empty_rows``, two empty rows that must be exactly 0; then cold
-    CUDA-event medians of kernel, plain version and SDPA at ``timed_window``
-    beside the byte bound of this run's live positions."""
+    ``empty_rows``, two empty rows that must be exactly 0 beside a live one
+    (``empty``: their seq_lens and first_live); then cold CUDA-event medians
+    of kernel, plain version and SDPA at ``timed_window`` beside the byte
+    bound of this run's live positions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import kvwal
@@ -477,8 +505,8 @@ def _tide_shape(rng, dev, B, H, KH, d, NB, blk, lens, live, windows,
             # position below first_live.  Both must be exactly 0.
             e_args = [a[:3].clone() for a in args[:3]] + [
                 ints[0][:3].clone(),
-                torch.tensor([0, 300, 700], dtype=torch.int32, device=dev),
-                torch.tensor([0, 384, 128], dtype=torch.int32, device=dev)]
+                torch.tensor(empty[0], dtype=torch.int32, device=dev),
+                torch.tensor(empty[1], dtype=torch.int32, device=dev)]
             got = tk.tide_attention(*e_args)
             if bool(got[:2].any()):
                 fail(f"tide_attention {dtype}: an empty row is not 0")
@@ -560,15 +588,19 @@ def _tide_any_block(rng, dev) -> dict:
 
 
 def tide_phase(seed: int, device: str = "cuda") -> dict:
-    """tide_attention at the two decode shapes that use it.  Llama-3-8B:
+    """tide_attention at the decode shapes that use it.  Llama-3-8B:
     B=8 slots, 32 query heads over 8 kv-heads, head_dim 128, blocks of 128,
     16 blocks = 2048 positions, random permuted tables, lengths 1-2048, row
     0 pruned below position 512, windows 0 and 300, and two empty rows.
     RecurrentGemma-9B: B=4, 16 query heads over 1 kv-head of 256, 32 blocks
     of 128, window 2048, first_live 512, seq_len 2624 (the griffin path's
-    last decode step).  The Llama shape's numbers head the row; the other
-    shape's sit under ``recurrentgemma``, and the Llama shape in blocks of
-    8 and 24 positions under ``any_block``."""
+    last decode step).  Qwen2-MoE-A2.7B: B=8, 16 query heads over 16
+    kv-heads of 128 (a group of 1), 16 blocks of 128, as Llama's rows.
+    Whisper-large-v3's decoder: B=8, 20 heads over 20 kv-heads of 64, 4
+    blocks of 128 (its 448-position context), lengths 1-448, row 0 pruned
+    below 128, two empty rows.  The Llama shape's numbers head the row; the
+    others sit under ``recurrentgemma``, ``qwen2_moe`` and ``whisper``, and
+    the Llama shape in blocks of 8 and 24 positions under ``any_block``."""
     import torch
     dev = torch.device(device)
     rng = np.random.default_rng(seed + 4)
@@ -581,30 +613,52 @@ def tide_phase(seed: int, device: str = "cuda") -> dict:
                         (0, 300), 0, empty_rows=True)
     griffin = _tide_shape(rng, dev, 4, 16, 1, 256, 32, 128, [2624] * 4,
                           [512] * 4, (2048,), 2048, empty_rows=False)
+    any_block = _tide_any_block(rng, dev)
+    # Group-1 shapes: each CTA's 16-row tile carries one live query head.
+    qwen = _tide_shape(rng, dev, B, 16, 16, 128, NB, blk, lens, live,
+                       (0, 300), 0, empty_rows=True)
+    w_lens = rng.integers(1, 449, B)
+    w_lens[0] = max(w_lens[0], 256)
+    w_live = np.zeros(B, np.int64)
+    w_live[0] = 128
+    whisper = _tide_shape(rng, dev, B, 20, 20, 64, 4, blk, w_lens, w_live,
+                          (0,), 0, empty_rows=True,
+                          empty=((0, 150, 400), (0, 256, 128)))
     return dict(llama, replaces="src/repro/kernels/tide_attention/kernel.py:79",
-                max_abs_err=max(llama["max_abs_err"], griffin["max_abs_err"]),
-                recurrentgemma=griffin, any_block=_tide_any_block(rng, dev))
+                max_abs_err=max(x["max_abs_err"] for x in
+                                (llama, griffin, qwen, whisper)),
+                recurrentgemma=griffin, qwen2_moe=qwen, whisper=whisper,
+                any_block=any_block)
 
 
 # ------------------------------------------------------------ serving path
 
 def serve_path(cfg, seed: int, device: str = "cuda", *, requests: int = 16,
                slots: int = 8, max_seq: int = 2048, new_tokens: int = 32,
-               prompt_lens: tuple = (16, 1024)) -> dict:
-    """Serve ``requests`` greedy requests through ``ServingEngine``; check
-    every answer's shape and range, the kernel's launch count and the
-    recycled segments.  Returns the engine (still holding its weights) and
-    the measurements."""
+               prompt_lens: tuple = (16, 1024), extra_prompts: tuple = ()
+               ) -> dict:
+    """Serve ``requests`` greedy requests through ``ServingEngine``, prompts
+    of ``prompt_lens`` tokens and, in place of the last draws, one of each
+    length in ``extra_prompts``; check every answer's shape and range, the
+    kernel's launch count and the recycled segments.  Returns the engine
+    (still holding its weights) and the measurements, with the device
+    memory peak of the engine's start (random fp32 weights, their cast) and
+    of the whole run."""
     import torch
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    _reset_peak(device)
     engine = ServingEngine(cfg, T.init_params(cfg, gen), batch_slots=slots,
                            max_seq=max_seq, seed=seed, device=device)
+    init_peak = _peak_bytes(device)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
         prompt_lens[0], prompt_lens[1] + 1))) for _ in range(requests)]
+    for i, n in enumerate(extra_prompts):
+        prompts[requests - len(extra_prompts) + i] = rng.integers(
+            0, cfg.vocab, n)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 
     reset_launches()
@@ -638,7 +692,8 @@ def serve_path(cfg, seed: int, device: str = "cuda", *, requests: int = 16,
         prompt_tokens=sum(len(p) for p in prompts), new_tokens=tokens,
         launches=launches, decode_steps=engine.decode_steps,
         segments_recycled=engine.segments_recycled, wall_s=wall,
-        tokens_per_s=tokens / wall,
+        tokens_per_s=tokens / wall, init_peak_bytes=init_peak,
+        peak_bytes=_peak_bytes(device),
         prefill_ms_per_request=engine.prefill_s / engine.prefills * 1e3,
         decode_ms_per_step=engine.decode_s / engine.decode_steps * 1e3)
 
@@ -738,9 +793,13 @@ def device_profile(fn, match: str, top: int | None = 10) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = {}
+    dev, aten = {}, {}
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", 0) or 0
+        # The products by the op that launched them: batched (``einsum``:
+        # the MoE dispatch and experts) or two-dimensional (projections).
+        if ev.key in ("aten::bmm", "aten::mm", "aten::addmm"):
+            aten[ev.key] = t / 1e3
         # Operator and runtime- and driver-API rows (cudaLaunchKernel,
         # cuLaunchKernelEx, "Command Buffer Full") carry device time of the
         # kernels they launch: skip them.
@@ -755,6 +814,7 @@ def device_profile(fn, match: str, top: int | None = 10) -> dict:
             "idle_share": 1 - busy / wall, f"{match}_ms": hit,
             f"{match}_share": hit / busy if busy else 0.0,
             "matmul_ms": mm, "matmul_share": mm / busy if busy else 0.0,
+            "device_ms_by_aten": aten,
             "device_ms_by_op": dict(sorted(dev.items(),
                                            key=lambda kv: -kv[1])[:top])}
 
@@ -797,16 +857,24 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
                 smoke: bool = False) -> dict:
     """The serving path at full width, then the decode-step checks: the
     profile, and kernel against plain in bf16 over every layer and in fp32
-    over 4 layers."""
+    over 4 layers.  A moe model takes prompts of 16-512 tokens and, in
+    place of the last, one of 1024: its prefill groups a prompt's tokens
+    by 512, and a length above 512 that 512 does not divide raises, as in
+    the JAX package.  Its profile splits the step's device time into D,
+    the batched products (the MoE dispatch and expert einsums), the other
+    products and the rest."""
     import dataclasses
     import gc
     import torch
     from repro_torch.configs.registry import get_config
     cfg = get_config(arch, smoke=smoke)
+    name = "serving path" if arch == "llama3-8b" else f"{arch} path"
     small = dict(requests=6, slots=3, max_seq=64, new_tokens=5,
                  prompt_lens=(2, 20)) if smoke else {}
+    if cfg.moe is not None and not smoke:
+        small = dict(prompt_lens=(16, 512), extra_prompts=(1024,))
     engine, res = serve_path(cfg, seed, device, **small)
-    say(f"serving path: {json.dumps(res)}")
+    say(f"{name}: {json.dumps(res)}")
     plens = small.get("prompt_lens", (16, 1024))
     _fill_slots(engine, seed, plens)
     if device == "cuda":
@@ -816,12 +884,21 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
         # against the unprofiled mean step.
         prof["idle_share_unprofiled"] = \
             1 - prof["device_busy_ms"] / res["decode_ms_per_step"]
-        say(f"serving path, decode step profile: {json.dumps(prof)}")
+        if cfg.moe is not None:
+            by = prof["device_ms_by_aten"]
+            bmm = by.get("aten::bmm", 0.0)
+            mm = by.get("aten::mm", 0.0) + by.get("aten::addmm", 0.0)
+            prof["breakdown_ms"] = {
+                "tide_attention": prof["tide_ms"],
+                "batched products (MoE dispatch and experts)": bmm,
+                "other products": mm,
+                "rest": prof["device_busy_ms"] - prof["tide_ms"] - bmm - mm}
+        say(f"{name}, decode step profile: {json.dumps(prof)}")
     from repro_torch.kernels.tide_attention.ref import tide_attention_ref
     from repro_torch.models import serve
     step = kernel_vs_plain(_engine_step(engine), serve, "decode_attention",
                            tide_attention_ref, with_fp32=True)
-    res["bf16_step"] = bf16_check("serving path, bf16 decode step", step)
+    res["bf16_step"] = bf16_check(f"{name}, bf16 decode step", step)
     del engine, step
     gc.collect()
     if device == "cuda":
@@ -829,8 +906,8 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
 
     cfg32 = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, 4),
                                 dtype="float32")
-    engine, _ = serve_path(cfg32, seed, device, **dict(small, requests=1,
-                                                       new_tokens=2))
+    engine, _ = serve_path(cfg32, seed, device, **dict(
+        small, requests=1, new_tokens=2, extra_prompts=()))
     _fill_slots(engine, seed, plens)
     step = kernel_vs_plain(_engine_step(engine), serve, "decode_attention",
                            tide_attention_ref, with_fp32=False)
@@ -838,7 +915,7 @@ def serve_phase(seed: int, device: str = "cuda", arch: str = "llama3-8b",
     res["fp32_step"] = dict(n_layers=cfg32.n_layers,
                             max_abs_err=float((k - p).abs().max()),
                             max_abs_logit=float(p.abs().max()))
-    say(f"serving path, fp32 decode step: {json.dumps(res['fp32_step'])}")
+    say(f"{name}, fp32 decode step: {json.dumps(res['fp32_step'])}")
     _close(k, p, 2e-4)
     del engine
     gc.collect()
@@ -1180,10 +1257,8 @@ def griffin_phase(seed: int, device: str = "cuda", smoke: bool = False
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     _reset_peak(device)
-    params32 = T.init_params(cfg, gen)
-    params = cast_weights(params32, cfg.adtype, device)
+    params = cast_weights(T.init_params(cfg, gen), cfg.adtype, device)
     init_peak = _peak_bytes(device)
-    del params32                      # serve from the bf16 copy alone
     _free(device)
     _reset_peak(device)
     rng = np.random.default_rng(seed + 7)
@@ -1256,6 +1331,220 @@ def griffin_phase(seed: int, device: str = "cuda", smoke: bool = False
             f"{live})", step)
     del params, cache, step
     _free(device)
+    return res
+
+
+# ----------------------------------------- MLA and whisper: serve directly
+
+def smoke_on_card(arch: str, seed: int, steps: int = 6,
+                  device: str = "cuda") -> dict:
+    """The architecture's SMOKE config (fp32) on the card against the same
+    run on the host: ``serve.prefill`` of 2 x 8 tokens, then ``steps``
+    teacher-forced decode steps, logits at 2e-4 at every step.  On the card
+    GQA decode goes through D; on the host through its plain version."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed + 8)
+    B, S = 2, 8
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + steps))
+                              .astype(np.int32))
+    batch = {"tokens": tokens[:, :S]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.encoder_dim)).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", device):
+        p = _to(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        reset_launches()
+        with torch.no_grad():
+            logits, cache = serve.prefill(p, cfg, b, S + steps)
+            out = [logits]
+            for t in range(S, S + steps):
+                logits, cache = serve.decode_step(p, cfg, cache,
+                                                  tokens[:, t].to(dev))
+                out.append(logits)
+        runs[dev] = torch.stack(out).cpu()
+    launches = read_launches()
+    want = 0 if cfg.mla is not None else cfg.n_layers * steps
+    if launches["tide_attention"] != want:
+        fail(f"{arch} SMOKE on the card: tide_attention launched "
+             f"{launches['tide_attention']} times, not {want}")
+    return dict(arch=cfg.name, decode_steps=steps,
+                tide_attention_launches=launches["tide_attention"],
+                max_abs_err=_close(runs[device], runs["cpu"], 2e-4),
+                max_abs_logit=float(runs["cpu"].abs().max()))
+
+
+def _to(tree, device):
+    """The same tree with every leaf moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def deepseek_phase(seed: int, device: str = "cuda", smoke: bool = False
+                   ) -> dict:
+    """DeepSeek-V3 at full width with its depth cut to 1 layer (the full
+    model's 1.34 TB of bf16 weights do not fit one card): MLA with the
+    576-dim latent arena, 256 routed experts top-8 and one shared, the MTP
+    module's parameters; 13.7 B parameters made in fp32 and cast leaf by
+    leaf to bf16.  ``serve.prefill`` of 4 x 512 tokens, then 16 greedy
+    decode steps through MLA's absorbed form, which reaches no kernel (D's
+    launches must stay 0).  Then the SMOKE config on the card against the
+    host."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import cast_weights
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", smoke=smoke),
+                              n_layers=1)
+    B, S, steps = (2, 16, 4) if smoke else (4, 512, 16)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    _reset_peak(device)
+    params = cast_weights(T.init_params(cfg, gen), cfg.adtype, device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_peak = _peak_bytes(device)
+    _free(device)
+    _reset_peak(device)
+    rng = np.random.default_rng(seed + 9)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = serve.prefill(params, cfg, {"tokens": tokens},
+                                      S + steps)
+    sync()
+    t1 = time.perf_counter()
+    step_ms = []
+    tok, out = logits.argmax(-1).to(torch.int32), []
+    with torch.no_grad():
+        for _ in range(steps):
+            out.append(tok)
+            t = time.perf_counter()
+            logits, cache = serve.decode_step(params, cfg, cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            sync()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_launches()
+    _check_outputs("deepseek-v3 decode", cfg, logits, torch.stack(out, 1))
+    if launches["tide_attention"]:
+        fail("MLA decode launched tide_attention")
+    if cache["arena_k"].shape[-2:] != (1, cfg.mla.kv_lora_rank) or \
+            cache["arena_v"].shape[-2:] != (1, cfg.mla.qk_rope_head_dim):
+        fail(f"MLA arenas {tuple(cache['arena_k'].shape)} / "
+             f"{tuple(cache['arena_v'].shape)}")
+    res = dict(arch=cfg.name, reduced="n_layers 61 -> 1", n_layers=1,
+               d_model=cfg.d_model, params=n_params, batch=B,
+               prompt_tokens=S, decode_steps=steps,
+               prefill_ms=(t1 - t0) * 1e3, decode_ms_by_step=step_ms,
+               decode_ms_per_step=statistics.median(step_ms),
+               tokens_per_s=B * steps / (sum(step_ms) / 1e3),
+               launches=launches, init_peak_bytes=init_peak,
+               peak_bytes=_peak_bytes(device))
+    del params, cache, logits
+    _free(device)
+    res["smoke_on_card"] = smoke_on_card("deepseek-v3-671b", seed,
+                                         device=device)
+    return res
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def whisper_phase(seed: int, device: str = "cuda", smoke: bool = False
+                  ) -> dict:
+    """Whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+    layers, d 1280, 20 heads of 64): 8 x 1500 random frames of width 1280
+    from the seed, a 4-token decoder prompt, ``serve.prefill`` (encoder,
+    decoder prompt, cross K/V) into 448-position arenas, then 32 greedy
+    decode steps, D once a decoder layer a step (32).  Then one decode
+    step through D and through its plain version (bf16 rule), and the SMOKE
+    config on the card against the host."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.tide_attention.ref import tide_attention_ref
+    from repro_torch.models import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import cast_weights
+    cfg = get_config("whisper-large-v3", smoke=smoke)
+    B, S, max_seq, steps = (2, 4, 32, 4) if smoke else (8, 4, 448, 32)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    _reset_peak(device)
+    params = cast_weights(T.init_params(cfg, gen), cfg.adtype, device)
+    _free(device)
+    rng = np.random.default_rng(seed + 10)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                        .astype(np.int32)).to(device),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (B, cfg.encoder_seq, cfg.encoder_dim), dtype=np.float32)
+                 ).to(device)}
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = serve.prefill(params, cfg, batch, max_seq)
+    sync()
+    t1 = time.perf_counter()
+    pre = read_launches()
+    reset_launches()
+    with torch.no_grad():
+        out, last, cache = _greedy(params, cfg, cache, logits, steps)
+    sync()
+    t2 = time.perf_counter()
+    dec = read_launches()
+    _check_outputs("whisper prefill", cfg, logits, out)
+    _check_outputs("whisper decode", cfg, last, out)
+    if dec["tide_attention"] != cfg.n_layers * steps or \
+            pre["tide_attention"]:
+        fail(f"tide_attention launched {dec['tide_attention']} times in "
+             f"{steps} decode steps (and {pre['tide_attention']} in "
+             f"prefill), not {cfg.n_layers} a step")
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers,
+               n_encoder_layers=cfg.n_encoder_layers, d_model=cfg.d_model,
+               batch=B, encoder_frames=cfg.encoder_seq, prompt_tokens=S,
+               max_seq=max_seq, decode_steps=steps,
+               encoder_and_prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+               tokens_per_s=B * steps / (t2 - t1),
+               launches={k: pre[k] + dec[k] for k in pre},
+               peak_bytes=_peak_bytes(device))
+    tok = last.argmax(-1).to(torch.int32)
+    if device == "cuda":
+        run = decode_runner(params, cfg, cache, tok)
+        prof = res["decode_profile"] = device_profile(lambda: run(False),
+                                                      "tide")
+        prof["idle_share_unprofiled"] = \
+            1 - prof["device_busy_ms"] / res["decode_ms_per_step"]
+    say(f"whisper path: {json.dumps(res)}")
+    step = kernel_vs_plain(decode_runner(params, cfg, cache, tok), serve,
+                           "decode_attention", tide_attention_ref,
+                           with_fp32=True)
+    res["bf16_step"] = bf16_check("whisper path, bf16 decode step", step)
+    del params, cache, step
+    _free(device)
+    res["smoke_on_card"] = smoke_on_card("whisper-large-v3", seed,
+                                         device=device)
     return res
 
 
@@ -1690,6 +1979,34 @@ def main() -> None:
         f"decode {griffin['decode_ms_per_step']:.2f} ms a step, "
         f"{griffin['tokens_per_s']:.1f} tokens/s, first_live "
         f"{griffin['first_live']}, peak {griffin['peak_bytes']} B")
+    moe = serve_phase(args.seed, arch="qwen2-moe-a2.7b")
+    moe["smoke_on_card"] = smoke_on_card("qwen2-moe-a2.7b", args.seed)
+    say(f"qwen2-moe path [{card}]: {json.dumps(moe)}")
+    say(f"qwen2-moe path [{card}]: {moe['requests']} requests, prefill "
+        f"{moe['prefill_ms_per_request']:.1f} ms a request, decode "
+        f"{moe['decode_ms_per_step']:.2f} ms a step, "
+        f"{moe['tokens_per_s']:.1f} tokens/s, tide_attention "
+        f"{moe['launches']['tide_attention'] // moe['decode_steps']} "
+        f"launches a step, peak {moe['peak_bytes']} B")
+    if moe["peak_bytes"] >= 80e9:
+        fail(f"qwen2-moe peaked at {moe['peak_bytes']} B, not below 80 GB")
+    deepseek = deepseek_phase(args.seed)
+    say(f"deepseek path [{card}]: {json.dumps(deepseek)}")
+    say(f"deepseek path [{card}]: {deepseek['reduced']}, "
+        f"{deepseek['params']} parameters, prefill {deepseek['batch']} x "
+        f"{deepseek['prompt_tokens']} tokens "
+        f"{deepseek['prefill_ms']:.1f} ms, "
+        f"decode {deepseek['decode_ms_per_step']:.2f} ms a step (median), "
+        f"peak {deepseek['init_peak_bytes']} B at init, "
+        f"{deepseek['peak_bytes']} B serving")
+    whisper = whisper_phase(args.seed)
+    say(f"whisper path [{card}]: {json.dumps(whisper)}")
+    say(f"whisper path [{card}]: encoder and prefill {whisper['batch']} x "
+        f"{whisper['encoder_frames']} frames "
+        f"{whisper['encoder_and_prefill_ms']:.1f} ms, decode "
+        f"{whisper['decode_ms_per_step']:.2f} ms a step, tide_attention "
+        f"{whisper['launches']['tide_attention'] // whisper['decode_steps']}"
+        f" launches a step, peak {whisper['peak_bytes']} B")
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
@@ -1698,10 +2015,14 @@ def main() -> None:
                "llama3-8b": served["launches"],
                "mamba2-1.3b": mamba["launches"],
                "recurrentgemma-9b": griffin["launches"],
-               "recurrentgemma-9b-smoke": griffin_smoke["launches"]}
-    # Both decode paths split every row (S = 4 and 33 on 132 SMs), so each
-    # call of D runs its combine pass too.
-    for p in ("llama3-8b", "recurrentgemma-9b"):
+               "recurrentgemma-9b-smoke": griffin_smoke["launches"],
+               "qwen2-moe-a2.7b": moe["launches"],
+               "deepseek-v3-671b-1-layer": deepseek["launches"],
+               "whisper-large-v3": whisper["launches"]}
+    # These decode paths split every row (S = 4, 33, 2 and 2 on 132 SMs), so
+    # each call of D runs its combine pass too.
+    for p in ("llama3-8b", "recurrentgemma-9b", "qwen2-moe-a2.7b",
+              "whisper-large-v3"):
         c = by_path[p]
         if c["tide_attention_combine"] != c["tide_attention"]:
             fail(f"{p}: {c['tide_attention']} calls of tide_attention ran "
@@ -1734,10 +2055,12 @@ def main() -> None:
             rows[-1]["combine_launches"] = sum(
                 c["tide_attention_combine"] for c in by_path.values())
             rows[-1]["splits"] = k["splits"]
-            rows[-1]["recurrentgemma"] = {
-                key: k["recurrentgemma"][key] for key in (
-                    "shape", "splits", "max_abs_err", "ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms")}
+            for other in ("recurrentgemma", "qwen2_moe", "whisper"):
+                rows[-1][other] = {
+                    key: k[other][key] for key in (
+                        "shape", "splits", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}
+                rows[-1][other]["floor_ms"] = floor_ms
             rows[-1]["any_block"] = k["any_block"]
         if name == "ssd_scan":
             rows[-1]["pass_launches"] = {

@@ -31,9 +31,10 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family not in T.DENSE_FAMILIES:
+    if cfg.family not in T.KV_WAL_FAMILIES:
         raise SystemExit(f"{args.arch}: the port's serving engine serves the "
-                         f"KV-WAL families (dense, vlm), not {cfg.family}")
+                         f"KV-WAL families ({', '.join(T.KV_WAL_FAMILIES)}), "
+                         f"not {cfg.family}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to serve on the "
                          "host")

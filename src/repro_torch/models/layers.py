@@ -28,10 +28,11 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
                 n: tuple = (), scale: float = 0.02) -> torch.Tensor:
     """Normal(0, scale²) weights of shape n + (d_in, d_out), drawn in fp32
-    on the generator's device; ``n`` stacks layers."""
+    on the generator's device; ``n`` stacks layers.  The scale multiplies
+    in place, so a leaf takes its own size at init and no more."""
     w = torch.randn((*n, d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 # --------------------------------------------------------------------- RoPE
@@ -80,6 +81,19 @@ def mrope_angles(positions: torch.Tensor, rotary_dim: int, theta: float,
     return torch.cos(ang), torch.sin(ang)
 
 
+def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embedding, computed on the fly.
+    The frequencies' exponent is built in numpy as the JAX package builds
+    it, then exponentiated in fp32."""
+    half = dim // 2
+    expo = -np.log(10000.0) * np.arange(half, dtype=np.float32) \
+        / max(half - 1, 1)
+    inv = torch.exp(torch.from_numpy(np.asarray(expo, np.float32)).to(
+        positions.device))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------- attention
 def _attn_scores_block(q, k, v, mask, scale):
     """q (B,Sq,KH,G,hd), k (B,Skv,KH,hd), v (B,Skv,KH,vd), mask (B,Sq,Skv).
@@ -93,13 +107,14 @@ def _attn_scores_block(q, k, v, mask, scale):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
-              chunk_q: int = 0) -> torch.Tensor:
+              chunk_q: int = 0, scale: float | None = None) -> torch.Tensor:
     """Prefill multi-query attention, query and key positions from 0.
 
     q (B,Sq,H,hd); k,v (B,Skv,KH,*).  GQA is computed by grouping query
     heads (no KV repetition).  Returns (B,Sq,H,vd).  With ``window > 0`` a
     query at position i sees keys at positions > i - window (griffin's
-    local attention).  The JAX package's offsets and per-sequence
+    local attention).  ``scale`` defaults to hd^-½ (MLA passes
+    (nope + rope)^-½).  The JAX package's offsets and per-sequence
     kv_len/kv_start serve decode, which goes through ``tide_attention``
     here.
     """
@@ -107,7 +122,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KH = k.shape[2]
     G = H // KH
     vd = v.shape[-1]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(B, Sq, KH, G, hd)
     Skv = k.shape[1]
     dev = q.device
@@ -166,12 +181,34 @@ def gqa_block(params: dict, x: torch.Tensor, cfg, *, cos=None, sin=None,
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype), (k, v)
 
 
-def init_gqa(gen: torch.Generator, cfg, dtype, *, n: tuple = ()) -> dict:
-    """GQA weights, stacked over ``n`` (layers)."""
+def cross_attention(params: dict, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, cfg) -> torch.Tensor:
+    """Attention of x (B,S,d) over encoder K/V (B,Senc,KH,hd), no mask and
+    no rotation (whisper's decoder) → (B,S,d)."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    o = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q)
+    return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+
+
+def cross_kv(params: dict, enc: torch.Tensor, cfg, dtype):
+    """Encoder states (B,Senc,encoder_dim) → cross-attention (K, V), each
+    (B,Senc,KH,hd) in ``dtype``."""
+    B = enc.shape[0]
+    shape = (B, -1, cfg.n_kv_heads, cfg.hd)
+    return ((enc @ params["wk"].to(dtype)).reshape(shape),
+            (enc @ params["wv"].to(dtype)).reshape(shape))
+
+
+def init_gqa(gen: torch.Generator, cfg, dtype, *, n: tuple = (),
+             cross: bool = False) -> dict:
+    """GQA weights, stacked over ``n`` (layers).  With ``cross`` the K/V
+    projections read encoder states of ``cfg.encoder_dim`` (whisper)."""
     H, KH, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    d_kv = (cfg.encoder_dim or d) if cross else d
     p = {"wq": init_linear(gen, d, H * hd, dtype, n=n),
-         "wk": init_linear(gen, d, KH * hd, dtype, n=n),
-         "wv": init_linear(gen, d, KH * hd, dtype, n=n),
+         "wk": init_linear(gen, d_kv, KH * hd, dtype, n=n),
+         "wv": init_linear(gen, d_kv, KH * hd, dtype, n=n),
          "wo": init_linear(gen, H * hd, d, dtype, n=n)}
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((*n, hd), dtype=dtype, device=gen.device)

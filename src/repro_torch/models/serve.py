@@ -1,19 +1,25 @@
 """Serving paths: prefill and single-token decode over the Tidehunter KV-WAL
-(dense, vlm and griffin's local attention) and over fixed-size recurrent
-states (ssm, griffin's recurrent blocks).
+(dense, vlm, moe — GQA or MLA — whisper's decoder and griffin's local
+attention) and over fixed-size recurrent states (ssm, griffin's recurrent
+blocks).
 
 - ``cache_spec(cfg, batch, max_seq)`` → {name: (shape, dtype)}
 - ``init_cache(cfg, batch, max_seq, device)`` → zeroed cache, identity table
 - ``prefill(params, cfg, batch_inputs, max_seq)`` → (last-token logits, cache)
 - ``decode_step(params, cfg, cache, tokens)`` → (logits, cache)
 
-Decode reads K/V *through* the KV-WAL slot table inside the
+GQA decode reads K/V *through* the KV-WAL slot table inside the
 ``tide_attention`` kernel (``kernels/tide_attention``), with the
 per-sequence ``first_live`` epoch watermark masking pruned segments and, for
 griffin, the sliding window; the JAX package gathers the arena and runs
 dense attention there.  Both write each token's K/V entry once and never
-move it.  Griffin's decode advances ``first_live`` past the blocks that fall
-wholly behind the window.  Mamba-2's prefill runs the SSD scan through
+move it.  MLA's decode keeps the JAX package's form: the latent and rope
+arenas are gathered through the table and the absorbed contractions run as
+plain products, masked at the sequence length only.  Whisper's
+cross-attention K/V are computed once at prefill from the encoder output
+and kept in the cache as ``cross_k`` / ``cross_v``.  Griffin's decode
+advances ``first_live`` past the blocks that fall wholly behind the
+window.  Mamba-2's prefill runs the SSD scan through
 kernel E (``kernels/ssd_scan``); its decode is the O(1) recurrent update.
 Cache writes happen in place: the cache returned shares its arenas and
 recurrent states with the cache passed in.
@@ -27,11 +33,14 @@ from repro_torch.kernels.tide_attention.ops import decode_attention
 
 from .base import ModelConfig
 from .griffin import lru_width, recurrent_block
-from .layers import gqa_block, mlp_block, qkv_proj, rms_norm
+from .layers import (cross_attention, mlp_block, qkv_proj, rms_norm,
+                     sinusoidal_embedding)
+from .mla import compress_kv, mla_decode
 from .ssm import ssm_block, ssm_dims
-from .transformer import (_angles, embed_tokens, griffin_block,
+from .transformer import (_angles, embed_tokens, encode, ffn, griffin_block,
                           griffin_blocks, griffin_layout, layer, lm_logits,
-                          require_family, with_vision)
+                          require_family, self_attention, whisper_layer,
+                          with_vision)
 
 
 # ------------------------------------------------------------- cache shapes
@@ -70,6 +79,13 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
                 "state": ((L, batch, nh, s.head_dim, s.d_state),
                           torch.float32),
                 "seq_lens": ((batch,), torch.int32)}
+    if cfg.family == "encdec":
+        spec = _wal_spec(cfg, batch, max_seq, cfg.n_layers)
+        kh, kd, vd = kv_entry_dims(cfg)
+        enc = (cfg.n_layers, batch, cfg.encoder_seq, kh)
+        spec["cross_k"] = ((*enc, kd), dt)
+        spec["cross_v"] = ((*enc, vd), dt)
+        return spec
     if cfg.family != "griffin":
         return _wal_spec(cfg, batch, max_seq, cfg.n_layers)
     g = cfg.griffin
@@ -105,8 +121,19 @@ def _self_attn_decode(cfg: ModelConfig, layer_p, h, arena_k, arena_v, table,
                       seq_lens, first_live, cos, sin, window: int = 0):
     """One decode self-attention through the KV-WAL.  h (B,1,d); the new
     token's K/V entry is appended to the layer arenas in place, then the
-    ``tide_attention`` kernel reads every live entry through the table."""
+    ``tide_attention`` kernel reads every live entry through the table.
+    MLA appends (c_kv, k_rope) and attends in the absorbed form over the
+    gathered arenas, up to the new length (``first_live`` unread, as in the
+    JAX package)."""
     p = layer_p["attn"]
+    if cfg.mla is not None:
+        c_kv, k_rope = compress_kv(p, h, cfg, cos, sin)
+        kvwal.append_token(arena_k, table, seq_lens, c_kv[:, 0, None, :])
+        kvwal.append_token(arena_v, table, seq_lens, k_rope[:, 0, None, :])
+        return mla_decode(p, h, cfg, cos, sin,
+                          kvwal.gather(arena_k, table)[:, :, 0],
+                          kvwal.gather(arena_v, table)[:, :, 0],
+                          kv_len=seq_lens + 1)
     q, k, v = qkv_proj(p, h, cfg, cos, sin)
     kvwal.append_token(arena_k, table, seq_lens, k[:, 0])
     kvwal.append_token(arena_v, table, seq_lens, v[:, 0])
@@ -159,6 +186,22 @@ def _griffin_decode(params, cfg: ModelConfig, cache: dict, x, cos, sin):
                    first_live=new_live.to(torch.int32))
 
 
+def _whisper_decode(params, cfg: ModelConfig, cache: dict, x):
+    seq_lens = cache["seq_lens"]
+    for i in range(cfg.n_layers):
+        layer_p = layer(params["layers"], i)
+        h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
+        x = x + _self_attn_decode(cfg, layer_p, h, cache["arena_k"][i],
+                                  cache["arena_v"][i], cache["table"],
+                                  seq_lens, cache["first_live"], None, None)
+        h = rms_norm(layer_p["ln_x"], x, cfg.norm_eps)
+        x = x + cross_attention(layer_p["xattn"], h, cache["cross_k"][i],
+                                cache["cross_v"][i], cfg)
+        h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
+        x = x + mlp_block(layer_p["mlp"], h, cfg.act)
+    return x, dict(cache, seq_lens=seq_lens + 1)
+
+
 def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 mrope_positions=None) -> tuple[torch.Tensor, dict]:
     """One new token per sequence.  tokens (B,) → logits (B, V)."""
@@ -178,6 +221,10 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
             cache["state"][i].copy_(st)
             x = x + out
         cache = dict(cache, seq_lens=seq_lens + 1)
+    elif cfg.family == "encdec":
+        x = x + sinusoidal_embedding(seq_lens[:, None], cfg.d_model).to(
+            x.dtype)
+        x, cache = _whisper_decode(params, cfg, cache, x)
     else:
         cos, sin = _angles(cfg, seq_lens[:, None], mrope_positions)
         if cfg.family == "griffin":
@@ -191,7 +238,7 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                     cache["arena_v"][i], cache["table"], seq_lens,
                     cache["first_live"], cos, sin)
                 h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
-                x = x + mlp_block(layer_p["mlp"], h, cfg.act)
+                x = x + ffn(cfg, layer_p, h)[0]
             cache = dict(cache, seq_lens=seq_lens + 1)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], cache
@@ -231,6 +278,17 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int
             cache["conv_bc"][i].copy_(cbc)
             cache["state"][i].copy_(st)
             x = x + out
+    elif cfg.family == "encdec":
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+        enc = encode(params, cfg, batch["frames"])
+        for i in range(cfg.n_layers):
+            x, (k, v), (ck, cv) = whisper_layer(
+                cfg, layer(params["layers"], i), x, enc)
+            kvwal.write_prefill(cache["arena_k"][i], k)
+            kvwal.write_prefill(cache["arena_v"][i], v)
+            cache["cross_k"][i].copy_(ck)
+            cache["cross_v"][i].copy_(cv)
     else:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         cos, sin = _angles(cfg, positions, batch.get("mrope_positions"))
@@ -240,13 +298,15 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int
             for i in range(cfg.n_layers):
                 layer_p = layer(params["layers"], i)
                 h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
-                out, (k, v) = gqa_block(layer_p["attn"], h, cfg, cos=cos,
-                                        sin=sin)
+                out, (k, v) = self_attention(cfg, layer_p["attn"], h, cos,
+                                             sin)
+                if cfg.mla is not None:            # (c_kv, k_rope): 1 head
+                    k, v = k[:, :, None], v[:, :, None]
                 kvwal.write_prefill(cache["arena_k"][i], k)
                 kvwal.write_prefill(cache["arena_v"][i], v)
                 x = x + out
                 h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
-                x = x + mlp_block(layer_p["mlp"], h, cfg.act)
+                x = x + ffn(cfg, layer_p, h)[0]
     cache["seq_lens"].fill_(S)
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], cache

@@ -1,16 +1,20 @@
-"""Model assembly: the dense family (llama3, qwen3, phi3), the vlm backbone
-(qwen2-vl: M-RoPE, precomputed patch embeddings), the ssm family (mamba2)
-and the griffin family (recurrentgemma).
+"""Model assembly for every family of the JAX package's
+``models/transformer.py``: dense (llama3, qwen3, phi3), the vlm backbone
+(qwen2-vl: M-RoPE, precomputed patch embeddings), moe (qwen2-moe: shared
+and routed experts; deepseek-v3: MLA, MoE and the MTP module's
+parameters), ssm (mamba2), griffin (recurrentgemma) and encdec (whisper:
+an encoder over precomputed frame embeddings, a decoder with
+cross-attention).
 
-Parameters keep the JAX package's pytree layout (``models/transformer.py``):
-a dict with ``embed``, ``final_norm``, ``lm_head`` (untied) and ``layers``
-(griffin: ``groups``, whose leaves stack the (rec, rec, attn) groups, and a
-``tail`` list of single blocks), whose leaves stack every layer on a leading
-axis, so ``convert.py`` carries the JAX package's parameters across leaf for
-leaf.  A Python loop over the layers takes the place of ``lax.scan``.
-
-The other families (moe, MLA, encdec) wait (ROADMAP A.11) and raise
-``NotImplementedError``.
+Parameters keep the JAX package's pytree layout: a dict with ``embed``,
+``final_norm``, ``lm_head`` (untied) and ``layers`` (griffin: ``groups``,
+whose leaves stack the (rec, rec, attn) groups, and a ``tail`` list of
+single blocks; encdec: ``enc_layers`` and ``enc_norm`` too), whose leaves
+stack every layer on a leading axis, so ``convert.py`` carries the JAX
+package's parameters across leaf for leaf.  A Python loop over the layers
+takes the place of ``lax.scan``.  DeepSeek's MTP module (``mtp``) feeds
+only the JAX package's training loss, which is not ported (ROADMAP A.12):
+its parameters are made and carried, and nothing here computes it.
 """
 from __future__ import annotations
 
@@ -18,24 +22,25 @@ import torch
 
 from .base import ModelConfig
 from .griffin import init_recurrent_block, recurrent_block
-from .layers import (gqa_block, init_gqa, init_linear, init_mlp, mlp_block,
-                     mrope_angles, rms_norm, rope_angles)
+from .layers import (cross_attention, cross_kv, gqa_block, init_gqa,
+                     init_linear, init_mlp, mlp_block, mrope_angles, rms_norm,
+                     rope_angles, sinusoidal_embedding)
+from .mla import init_mla, mla_train
+from .moe import init_moe, moe_block
 from .ssm import init_ssm, ssm_block
 
-DENSE_FAMILIES = ("dense", "vlm")
-FAMILIES = DENSE_FAMILIES + ("ssm", "griffin")
+KV_WAL_FAMILIES = ("dense", "vlm", "moe")    # a cache of KV-WAL arenas only
+FAMILIES = KV_WAL_FAMILIES + ("ssm", "griffin", "encdec")
 
 
 def require_family(cfg: ModelConfig, families=FAMILIES,
                    what: str = "the port's model stack") -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is of one of
-    ``families`` (and has neither MoE nor MLA layers)."""
-    if cfg.family not in families or cfg.mla is not None \
-            or cfg.moe is not None:
+    ``families``."""
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"{cfg.name}: {what} runs the {', '.join(families)} families "
-            f"without MoE or MLA layers, not this {cfg.family} model "
-            f"(ROADMAP A.11)")
+            f"{cfg.name}: {what} runs the {', '.join(families)} families, "
+            f"not this {cfg.family} model")
 
 
 def layer(stacked: dict, i: int) -> dict:
@@ -63,6 +68,57 @@ def griffin_layout(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // period, cfg.n_layers % period
 
 
+def _attn_ffn_init(gen, cfg: ModelConfig, dtype, n=()):
+    """A decoder layer of the KV-WAL families: MLA or GQA, then MoE or an
+    MLP, stacked over ``n``."""
+    d = cfg.d_model
+    ones = lambda: torch.ones((*n, d), dtype=dtype, device=gen.device)
+    p = {"ln1": ones(), "ln2": ones()}
+    p["attn"] = init_mla(gen, cfg, dtype, n=n) if cfg.mla is not None \
+        else init_gqa(gen, cfg, dtype, n=n)
+    if cfg.moe is not None:
+        p["moe"] = init_moe(gen, d, cfg.moe, dtype, n=n)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, n=n)
+    return p
+
+
+def _mtp_init(gen, cfg: ModelConfig, dtype) -> dict:
+    """DeepSeek's MTP module: a projection of (hidden, next embedding) and
+    one extra dense layer, whose MLP is as wide as a shared expert."""
+    d, dev = cfg.d_model, gen.device
+    ones = lambda: torch.ones((d,), dtype=dtype, device=dev)
+    ff = (cfg.moe.shared_d_ff or cfg.moe.expert_d_ff) if cfg.moe \
+        else cfg.d_ff
+    return {"proj": init_linear(gen, 2 * d, d, dtype),
+            "ln": ones(),
+            "layer": {"ln1": ones(),
+                      "attn": init_mla(gen, cfg, dtype) if cfg.mla is not None
+                      else init_gqa(gen, cfg, dtype),
+                      "ln2": ones(),
+                      "mlp": init_mlp(gen, d, ff, cfg.act, dtype)}}
+
+
+def _encdec_init(gen, cfg: ModelConfig, dtype) -> dict:
+    d, dev = cfg.d_model, gen.device
+    ones = lambda *n: torch.ones((*n, d), dtype=dtype, device=dev)
+    E, L = cfg.n_encoder_layers, cfg.n_layers
+    p = {"enc_layers": {"ln1": ones(E), "attn": init_gqa(gen, cfg, dtype,
+                                                         n=(E,)),
+                        "ln2": ones(E), "mlp": init_mlp(gen, d, cfg.d_ff,
+                                                        cfg.act, dtype,
+                                                        n=(E,))},
+         "enc_norm": ones(),
+         "layers": {"ln1": ones(L), "attn": init_gqa(gen, cfg, dtype, n=(L,)),
+                    "ln_x": ones(L),
+                    "xattn": init_gqa(gen, cfg, dtype, n=(L,), cross=True),
+                    "ln2": ones(L), "mlp": init_mlp(gen, d, cfg.d_ff,
+                                                    cfg.act, dtype, n=(L,))}}
+    if cfg.encoder_dim and cfg.encoder_dim != d:
+        p["frontend_proj"] = init_linear(gen, cfg.encoder_dim, d, dtype)
+    return p
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters in ``cfg.pdtype`` on the generator's device,
     normal(0, 0.02²) weights and unit norm scales, as the JAX package draws
@@ -86,11 +142,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         p["tail"] = [_griffin_block_init(gen, cfg, dtype,
                                          pattern[i % len(pattern)])
                      for i in range(n_tail)]
+    elif cfg.family == "encdec":
+        p.update(_encdec_init(gen, cfg, dtype))
     else:
-        p["layers"] = {"ln1": ones(L, d), "ln2": ones(L, d),
-                       "attn": init_gqa(gen, cfg, dtype, n=(L,)),
-                       "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, dtype,
-                                       n=(L,))}
+        p["layers"] = _attn_ffn_init(gen, cfg, dtype, n=(L,))
+        if cfg.mtp_depth:
+            p["mtp"] = _mtp_init(gen, cfg, dtype)
     return p
 
 
@@ -106,10 +163,13 @@ def lm_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def _angles(cfg: ModelConfig, positions, mrope_positions=None):
+    if cfg.family == "encdec":
+        return None, None
     if cfg.mrope_sections is not None and mrope_positions is not None:
         return mrope_angles(mrope_positions, cfg.hd, cfg.rope_theta,
                             cfg.mrope_sections)
-    return rope_angles(positions, cfg.hd, cfg.rope_theta)
+    rotary = cfg.hd if cfg.mla is None else cfg.mla.qk_rope_head_dim
+    return rope_angles(positions, rotary, cfg.rope_theta)
 
 
 def with_vision(cfg: ModelConfig, x, vision_embed):
@@ -123,12 +183,30 @@ def with_vision(cfg: ModelConfig, x, vision_embed):
 
 
 # ================================================================ forward
+def self_attention(cfg: ModelConfig, attn_p, h, cos, sin):
+    """Prefill self-attention of a KV-WAL layer → (output, the entries the
+    KV-WAL keeps: rotated (k, v) for GQA, (c_kv, k_rope) for MLA)."""
+    if cfg.mla is not None:
+        return mla_train(attn_p, h, cfg, cos, sin)
+    return gqa_block(attn_p, h, cfg, cos=cos, sin=sin)
+
+
+def ffn(cfg: ModelConfig, layer_p, h):
+    """The layer's feed-forward: MoE or an MLP → (output, the MoE's aux
+    loss or None)."""
+    if cfg.moe is not None:
+        return moe_block(layer_p["moe"], h, cfg.moe,
+                         dispatch_axes=cfg.moe_dispatch_axes)
+    return mlp_block(layer_p["mlp"], h, cfg.act), None
+
+
 def _dense_layer_fwd(cfg: ModelConfig, layer_p, x, cos, sin):
     h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
-    attn_out, _ = gqa_block(layer_p["attn"], h, cfg, cos=cos, sin=sin)
+    attn_out, _ = self_attention(cfg, layer_p["attn"], h, cos, sin)
     x = x + attn_out
     h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
-    return x + mlp_block(layer_p["mlp"], h, cfg.act)
+    out, aux = ffn(cfg, layer_p, h)
+    return x + out, aux
 
 
 def griffin_block(cfg: ModelConfig, blk_p, x, cos, sin, kind):
@@ -160,13 +238,52 @@ def griffin_blocks(params, cfg: ModelConfig):
         yield None, ti, pattern[ti % len(pattern)], blk
 
 
+def encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (frontend stub).
+    Its self-attention is causal, as the JAX package's is (``cfg.causal``)."""
+    x = frames.to(cfg.adtype)
+    if "frontend_proj" in params:
+        x = x @ params["frontend_proj"].to(x.dtype)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
+    for i in range(cfg.n_encoder_layers):
+        layer_p = layer(params["enc_layers"], i)
+        h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
+        x = x + gqa_block(layer_p["attn"], h, cfg)[0]
+        h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
+        x = x + mlp_block(layer_p["mlp"], h, cfg.act)
+    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def whisper_layer(cfg: ModelConfig, layer_p, x, enc):
+    """One decoder layer over a whole sequence: causal self-attention,
+    cross-attention over ``enc``, MLP → (x, self (k, v), cross (k, v))."""
+    h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
+    out, kv = gqa_block(layer_p["attn"], h, cfg)
+    x = x + out
+    h = rms_norm(layer_p["ln_x"], x, cfg.norm_eps)
+    ck, cv = cross_kv(layer_p["xattn"], enc, cfg, h.dtype)
+    x = x + cross_attention(layer_p["xattn"], h, ck, cv, cfg)
+    h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
+    return x + mlp_block(layer_p["mlp"], h, cfg.act), kv, (ck, cv)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
-            mrope_positions=None) -> tuple[torch.Tensor, torch.Tensor]:
+            mrope_positions=None, frames=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (logits (B,S,V), aux_loss)."""
     require_family(cfg)
     B, S = tokens.shape
     x = with_vision(cfg, embed_tokens(params, cfg, tokens), vision_embed)
-    if cfg.family == "ssm":
+    aux = torch.zeros((), device=x.device)
+    if cfg.family == "encdec":
+        enc = encode(params, cfg, frames)
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
+        for i in range(cfg.n_layers):
+            x = whisper_layer(cfg, layer(params["layers"], i), x, enc)[0]
+    elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             layer_p = layer(params["layers"], i)
             h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
@@ -179,7 +296,9 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
                 x = griffin_block(cfg, blk, x, cos, sin, kind)[0]
         else:
             for i in range(cfg.n_layers):
-                x = _dense_layer_fwd(cfg, layer(params["layers"], i), x, cos,
-                                     sin)
+                x, a = _dense_layer_fwd(cfg, layer(params["layers"], i), x,
+                                        cos, sin)
+                if a is not None:
+                    aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+    return lm_logits(params, cfg, x), aux

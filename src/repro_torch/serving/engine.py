@@ -8,7 +8,8 @@ temperature sampling, and retired on EOS or length budget; retirement is an
 epoch event: all the sequence's blocks expire at once.
 
 This is the JAX package's ``ServingEngine`` (``repro/serving/engine.py``)
-for the dense family.  Greedy decoding picks the same tokens as the JAX
+for the families whose cache is the KV-WAL alone: dense, vlm and moe (GQA
+or MLA).  Greedy decoding picks the same tokens as the JAX
 engine's; temperature sampling draws from a ``torch.Generator`` seeded from
 ``seed`` and so draws other tokens than JAX's generator.  The storage-side
 ``KvBatchServer`` lives in ``kv_server`` (it needs neither PyTorch nor the
@@ -27,7 +28,7 @@ import torch
 from repro_torch.models import serve as serve_mod
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.convert import cast_weights
-from repro_torch.models.transformer import DENSE_FAMILIES, require_family
+from repro_torch.models.transformer import KV_WAL_FAMILIES, require_family
 from repro_torch.serving.kv_server import KvBatchServer, KvRead, KvWrite
 
 __all__ = ["Request", "ServingEngine", "KvBatchServer", "KvRead", "KvWrite"]
@@ -49,12 +50,15 @@ class Request:
 class ServingEngine:
     """Batched decode over a fixed slot count (continuous batching).
 
-    ``device`` defaults to ``"cuda"``, where every decode step runs the
+    ``device`` defaults to ``"cuda"``, where every GQA decode step runs the
     ``tide_attention`` kernel, and the engine refuses to start without a
     card; ``device="cpu"`` runs the kernel's plain version instead.  The
     engine holds the matrix weights cast once to ``cfg.adtype`` — the
     values the JAX package casts them to at every use — which halves
-    Llama-3-8B's 32 GB of fp32 weights; norm scales stay in ``cfg.pdtype``.
+    Llama-3-8B's 32 GB of fp32 weights; norm scales and the MoE router stay
+    in fp32.  The cast happens in the tree passed in (``cast_weights``),
+    leaf by leaf, so its fp32 leaves are freed as their copies are made:
+    afterwards that tree holds the cast weights.
 
     ``prefill_s`` and ``decode_s`` sum the host time of prefills and decode
     steps, each of which ends in a copy of its tokens to the host.
@@ -68,7 +72,7 @@ class ServingEngine:
                 f"ServingEngine(device={device!r}) needs a CUDA card and none "
                 f"is available; pass device='cpu' to run the kernel's plain "
                 f"version on the host")
-        require_family(cfg, DENSE_FAMILIES,
+        require_family(cfg, KV_WAL_FAMILIES,
                        "the serving engine (KV-WAL families only)")
         self.cfg = cfg
         self.device = torch.device(device)

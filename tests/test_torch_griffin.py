@@ -153,10 +153,11 @@ def test_cast_weights_keeps_the_fp32_leaves_and_descends_the_tail():
     for rec in [params["groups"]["blk0"]["rec"], params["tail"][1]["rec"]]:
         for k in ("b_r", "b_i", "lam"):
             rec[k].uniform_(-1, 1)
+    before = [(path, leaf.clone()) for path, leaf in _leaves(params)]
     cast = cast_weights(params, torch.bfloat16)
     assert isinstance(cast["tail"], list)
     kept = {"w_r", "w_i", "b_r", "b_i", "lam", "ln1", "ln2", "final_norm"}
-    leaves = list(zip(_leaves(params), _leaves(cast)))
+    leaves = list(zip(before, _leaves(cast)))
     assert any(path[0] == "tail" and path[-1] == "w_r"
                for (path, _), _ in leaves)
     for (path, a), (_, b) in leaves:

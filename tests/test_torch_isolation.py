@@ -34,6 +34,8 @@ def test_imports_neither_jax_nor_repro():
     assert "repro_torch.models.ssm" in mods
     assert "repro_torch.models.griffin" in mods
     assert "repro_torch.models.serve" in mods
+    assert "repro_torch.models.moe" in mods
+    assert "repro_torch.models.mla" in mods
     assert "repro_torch.serving.engine" in mods
     for mod in ("core.tidestore.shard", "core.tidestore.repair",
                 "core.tidestore.simulate", "serving.admission",

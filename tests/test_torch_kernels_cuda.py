@@ -348,6 +348,8 @@ def _tide_launch(args, window):
     (2, 8, 2, 64, 64, 6, 8, 0),           # blk = 8 < R: tiles span blocks
     (3, 16, 4, 64, 32, 5, 24, 40),        # blk = 24: R does not divide it
     (2, 4, 1, 16, 16, 4, 8, 16),          # RecurrentGemma SMOKE decode
+    (8, 16, 16, 128, 128, 16, 128, 0),    # Qwen2-MoE-A2.7B decode: G = 1
+    (8, 20, 20, 64, 64, 4, 128, 0),       # whisper-large-v3 decoder: G = 1
 ])
 def test_tide_attention_kernel_on_card(card, dtype, tol, B, H, KH, dk, dv,
                                        NB, blk, window):

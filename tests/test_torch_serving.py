@@ -1,4 +1,5 @@
-"""The port's dense model stack and serving engine against the JAX package's.
+"""The port's dense and moe model stacks (GQA and MLA) and serving engine
+against the JAX package's.
 
 The JAX package's parameters cross as numpy arrays (``params_from_numpy``),
 so both stacks run the same weights; token streams come from numpy seeds.
@@ -7,7 +8,9 @@ through the ``tide_attention`` plain version, the JAX package's through a
 gather and dense attention — agree at rtol/atol 2e-4, the tolerance of
 ``tests/test_models.py``.  The engines agree token for token under greedy
 decoding (JAX and torch random generators differ, so temperature sampling is
-not compared).
+not compared); for the moe configs a seed counts only if every routing
+decision is clear of rounding too (each token's k-th and (k+1)-th router
+probabilities more than 1e-5 apart, asserted).
 """
 import dataclasses
 import os
@@ -28,12 +31,13 @@ from repro.models import transformer as jax_T
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core import kvwal
-from repro_torch.models import serve, transformer as T
+from repro_torch.models import moe, serve, transformer as T
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 from repro_torch.serving.engine import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["llama3-8b", "qwen3-0.6b", "qwen2-vl-72b"]
+ARCHS = ["llama3-8b", "qwen3-0.6b", "qwen2-vl-72b", "qwen2-moe-a2.7b",
+         "deepseek-v3-671b"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -62,7 +66,8 @@ def test_configs_match_jax():
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-0.6b", "mamba2-1.3b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "qwen2-moe-a2.7b",
+                                  "deepseek-v3-671b"])
 def test_init_params_matches_jax_layout(arch):
     cfg = get_config(arch, smoke=True)
     gen = torch.Generator().manual_seed(0)
@@ -164,13 +169,29 @@ def test_decode_from_a_jax_cache():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("arch,seed", [("llama3-8b", 3), ("qwen3-0.6b", 0)])
+@pytest.mark.parametrize("arch,seed", [("llama3-8b", 3), ("qwen3-0.6b", 0),
+                                       ("qwen2-moe-a2.7b", 3),
+                                       ("deepseek-v3-671b", 2)])
 def test_engine_greedy_matches_jax(arch, seed, monkeypatch):
     """Six greedy requests of different prompt and output lengths over three
     slots.  Greedy parity needs every argmax to be clear of rounding: the
     port's engine records each active row's top-2 logit gap, and these
-    seeds give gaps above 1e-3 at every step (asserted below)."""
+    seeds give gaps above 1e-3 at every step (asserted below).  A moe
+    model's routing must be clear of rounding too: every MoE call records
+    the smallest gap between a token's k-th and (k+1)-th router
+    probability, which must exceed 1e-5."""
     jcfg, tcfg, jparams, tparams = _pair(arch)
+    margins = []
+    real_moe = T.moe_block
+
+    def moe_block(params, x, cfg, dispatch_axes=None):
+        probs = moe.moe_route(params["router"], moe.group_tokens(x, cfg),
+                              cfg)[2]
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        margins.append((top[..., -2] - top[..., -1]).min().item())
+        return real_moe(params, x, cfg, dispatch_axes)
+
+    monkeypatch.setattr(T, "moe_block", moe_block)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, tcfg.vocab, n) for n in (3, 9, 1, 17, 5, 12)]
     budgets = [4, 7, 2, 5, 9, 3]
@@ -208,6 +229,10 @@ def test_engine_greedy_matches_jax(arch, seed, monkeypatch):
         -(-(len(p) + n - 1) // tcfg.kv_block) for p, n in zip(prompts, budgets))
     assert teng.prefills == 6 and teng.decode_steps > 0
     assert min(gaps) > 1e-3, min(gaps)
+    if tcfg.moe is not None:
+        assert len(margins) == tcfg.n_layers * (teng.prefills
+                                                + teng.decode_steps)
+        assert min(margins) > 1e-5, min(margins)
 
 
 def test_engine_temperature_sampling_follows_its_seed():
@@ -226,12 +251,16 @@ def test_engine_temperature_sampling_follows_its_seed():
     assert all(0 <= t < tcfg.vocab for toks in first for t in toks)
 
 
-def test_engine_refuses_other_families():
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
+                                  "whisper-large-v3"])
+def test_engine_refuses_other_families(arch):
     """The engine splices KV-WAL arenas only, as the JAX engine does: it
-    refuses the ssm family, which the model stack now runs."""
-    cfg = get_config("mamba2-1.3b", smoke=True)
+    serves dense, vlm and moe, and refuses the ssm, griffin and encdec
+    families, which the model stack runs through ``models/serve.py``."""
+    cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError,
-                       match="KV-WAL families only.*dense, vlm.*A.11"):
+                       match=f"KV-WAL families only.*dense, vlm, moe.*not "
+                             f"this {cfg.family} model"):
         ServingEngine(cfg, {}, device="cpu")
 
 
@@ -250,7 +279,16 @@ def test_launcher_serves_on_the_cpu():
     assert "[serve] llama3-8b on cpu: 3 requests, 12 tokens" in res.stdout
     refused = _launch("--arch", "mamba2-1.3b", "--smoke", "--device", "cpu")
     assert refused.returncode != 0
-    assert "KV-WAL families (dense, vlm), not ssm" in refused.stderr
+    assert "KV-WAL families (dense, vlm, moe), not ssm" in refused.stderr
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+def test_launcher_serves_moe_on_the_cpu(arch):
+    res = _launch("--arch", arch, "--smoke", "--device", "cpu",
+                  "--requests", "3", "--slots", "2", "--max-seq", "32",
+                  "--max-new-tokens", "3")
+    assert res.returncode == 0, res.stderr
+    assert f"[serve] {arch} on cpu: 3 requests, 9 tokens" in res.stdout
 
 
 @pytest.mark.parametrize("causal,chunk_q", [

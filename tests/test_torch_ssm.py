@@ -173,13 +173,70 @@ def test_cast_weights_keeps_the_fp32_leaves():
     params["layers"]["ssm"]["A_log"].uniform_(-1, 1)
     params["layers"]["ssm"]["dt_bias"].uniform_(-1, 1)
     params["layers"]["ssm"]["norm"].uniform_(0.5, 1.5)
+    before = [(path, leaf.clone()) for path, leaf in _leaves(params)]
     cast = cast_weights(params, torch.bfloat16)
     kept = {"A_log", "dt_bias", "norm", "ln1", "final_norm"}
-    for (path, a), (_, b) in zip(_leaves(params), _leaves(cast)):
+    for (path, a), (_, b) in zip(before, _leaves(cast)):
         if path[-1] in kept:
             assert b.dtype == torch.float32 and torch.equal(a, b), path
         else:
             assert b.dtype == torch.bfloat16, path
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
+                                  "whisper-large-v3"])
+def test_cast_weights_keeps_the_moe_mla_and_whisper_fp32_leaves(arch):
+    """The MoE router (made in fp32, read in fp32: a rounded router changes
+    the routing), MLA's ``q_a_norm`` / ``kv_a_norm``, whisper's ``ln_x`` /
+    ``enc_norm`` and the MTP module's ``ln`` stay bit for bit; the rest is
+    cast to bf16."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    for path, leaf in _leaves(params):
+        if leaf.dtype == torch.float32 and path[-1] != "router":
+            leaf.uniform_(0.5, 1.5)          # not only ones: rounding shows
+    before = [(path, leaf.clone()) for path, leaf in _leaves(params)]
+    cast = cast_weights(params, torch.bfloat16)
+    kept = {"router", "q_a_norm", "kv_a_norm", "ln_x", "enc_norm", "ln",
+            "ln1", "ln2", "final_norm"}
+    seen = set()
+    for (path, a), (_, b) in zip(before, _leaves(cast)):
+        if path[-1] in kept:
+            seen.add(path[-1])
+            assert b.dtype == torch.float32 and torch.equal(a, b), path
+        else:
+            assert b.dtype == torch.bfloat16, path
+    want = {"ln1", "ln2", "final_norm"} | {
+        "qwen2-moe-a2.7b": {"router"},
+        "deepseek-v3-671b": {"router", "q_a_norm", "kv_a_norm", "ln"},
+        "whisper-large-v3": {"ln_x", "enc_norm"}}[arch]
+    assert seen == want
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b"])
+def test_cast_weights_casts_in_place(arch):
+    """The cast happens in the caller's own containers (griffin's ``tail``
+    list included), gives each leaf its copy under the rule (``FP32_KEYS``
+    kept, the rest ``.to(bf16)``), and holds no reference to a replaced
+    fp32 leaf, so the device frees it at once."""
+    import weakref
+    from repro_torch.models.convert import FP32_KEYS
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator().manual_seed(1))
+    want = [(path, leaf if path[-1] in FP32_KEYS else leaf.to(torch.bfloat16))
+            for path, leaf in _leaves(params)]
+    refs = {path: weakref.ref(leaf) for path, leaf in _leaves(params)}
+    inner = params["tail" if "tail" in params else "layers"]
+    got = cast_weights(params, torch.bfloat16)
+    assert got is params
+    assert got["tail" if "tail" in got else "layers"] is inner
+    assert [p for p, _ in _leaves(got)] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(_leaves(got), want):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    del want, a, b
+    for path, ref in refs.items():
+        if path[-1] not in FP32_KEYS:
+            assert ref() is None, path
 
 
 def _leaves(tree, path=()):
