@@ -2,8 +2,9 @@
 """Chip check of the PyTorch/CUDA port of Tidehunter: the storage path, the
 sharded storage server, KV-WAL decode serving of Llama-3-8B and
 Qwen2-MoE-A2.7B, Mamba-2 serving, RecurrentGemma decode through the
-KV-WAL's window and pruning, DeepSeek-V3's MLA over the latent arena, and
-whisper's encoder-decoder.
+KV-WAL's window and pruning, DeepSeek-V3's MLA over the latent arena,
+whisper's encoder-decoder, and Qwen3-0.6B training with its checkpoints in
+the port's ``TideDB``.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -108,6 +109,22 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    prompt, cross K/V) and 32 greedy decode steps, tide_attention once a
    decoder layer a step (32); the decode step's profile, kernel against
    plain (bf16 rule), and the SMOKE config on the card against the host.
+
+12. Training: Qwen3-0.6B at full width and depth (28 layers, d 1024,
+   vocab 151936, fp32 parameters and AdamW moments, bf16 activations,
+   remat on) through the launcher's loop over a pinned two-batch stream
+   of 8 x 2048 tokens: a first run saves at steps 0 and 3 into the port's
+   ``TideDB`` and fails at step 5; the resumed run restores step 3 (every
+   leaf's blake2b equal to the saved one), runs steps 4-7 (step 4's loss
+   equal to the printed digits, step 5's at 1e-3) and saves at 6 and 7,
+   whose pruning drops step 0's whole segments.  It prints ms a step,
+   tokens/s, peak bytes, a profiled step (idle share, device time by
+   kernel group, the AdamW update), each save's and the restore's seconds
+   and GB/s, and WAL bytes written and pruned; no kernel may launch.
+   Then one train step of each family's SMOKE config on the card against
+   the host (loss, gradients and updated parameters at 2e-4), and the
+   content-addressed sample store over the phase's 16 rows (8 KiB values,
+   ingested twice under two epochs).
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -1548,6 +1565,428 @@ def whisper_phase(seed: int, device: str = "cuda", smoke: bool = False
     return res
 
 
+# ---------------------------------------------------------- training path
+
+TRAIN_FAMILIES = ("llama3-8b", "qwen3-0.6b", "qwen2-vl-72b",
+                  "qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-1.3b",
+                  "recurrentgemma-9b", "whisper-large-v3")
+CKPT_SEGMENT = 64 << 20          # the checkpoint store's value-WAL segment
+
+
+def _leaf_bytes(t):
+    """A tensor's bytes as a host numpy array (a copy from the card)."""
+    import torch
+    return t.detach().cpu().contiguous().reshape(-1).view(
+        torch.uint8).numpy()
+
+
+def _leaf_hashes(tree) -> dict:
+    """blake2b of every leaf's bytes, by path, 8 leaves at a time (hashlib
+    releases the interpreter lock on large buffers)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.tree import leaves_with_path, path_str
+    items = [(path_str(p), t) for p, t in leaves_with_path(tree)]
+    with ThreadPoolExecutor(8) as pool:
+        digests = pool.map(lambda it: hashlib.blake2b(
+            _leaf_bytes(it[1])).hexdigest(), items)
+        return dict(zip((p for p, _ in items), digests))
+
+
+def _timed_checkpoints(base, hash_step: int):
+    """A ``CheckpointManager`` that times each save (the device→host copy
+    and the writer thread's WAL writes, flush and pruning apart) and each
+    restore, and hashes the state it saved at ``hash_step`` and every state
+    it restores (outside the timed spans)."""
+    import torch
+    from repro_torch.core.tree import leaves
+
+    class Timed(base):
+        made = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.saves, self.restores, self.saved_hashes = [], [], None
+            self._write_s = self._written = None
+            Timed.made.append(self)
+
+        def _sync(self):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+
+        def save(self, step, state, wait=True):
+            nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+            tail = self.stats()["wal_tail"]
+            self._sync()
+            t0 = time.perf_counter()
+            super().save(step, state, wait=True)
+            s = time.perf_counter() - t0
+            if step == hash_step:
+                self.saved_hashes = _leaf_hashes(self._written)
+            self._written = None
+            st = self.stats()
+            self.saves.append(dict(
+                step=step, bytes=nbytes, s=s, GB_s=nbytes / s / 1e9,
+                copy_s=s - self._write_s, write_s=self._write_s,
+                write_GB_s=nbytes / self._write_s / 1e9,
+                wal_bytes=st["wal_tail"] - tail,
+                segments_pruned=st["segments_pruned"]))
+
+        def _write_step(self, step, host_state):
+            t0 = time.perf_counter()
+            super()._write_step(step, host_state)
+            self._write_s = time.perf_counter() - t0
+            self._written = host_state
+
+        def restore(self, like, step=None):
+            self._sync()
+            t0 = time.perf_counter()
+            out, got = super().restore(like, step)
+            self._sync()
+            s = time.perf_counter() - t0
+            if out is not None:
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in leaves(out))
+                self.restores.append(dict(step=got, bytes=nbytes, s=s,
+                                          GB_s=nbytes / s / 1e9,
+                                          hashes=_leaf_hashes(out)))
+            return out, got
+
+    return Timed
+
+
+# Kernel-name groups of the profiled train step.  cuBLAS names its fp32
+# products (no tensor core: ``sgemm``, ``f32f32_f32f32``) apart from its
+# bf16 ones; the only fp32 products of Qwen3's step are attention's score
+# products and their backward.  The log-softmax kernels carry a LogSoftMax
+# epilogue (cross-entropy), attention's softmax a plain one.
+def _kernel_group(name: str) -> str:
+    n = name.lower()
+    if "logsoftmax" in n:
+        return "cross_entropy_log_softmax"
+    if "softmax" in n:
+        return "attention_softmax"
+    if any(w in n for w in ("gemm", "nvjet", "cutlass", "xmma")):
+        if "sgemm" in n or "f32f32_f32f32" in n:
+            return "attention_fp32_score_products"
+        return "bf16_products"
+    return "elementwise_copies_and_other"
+
+
+def _union_ms(spans) -> float:
+    """The length of the union of (start, end) µs intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def train_profile(step_call) -> dict:
+    """One train step under torch.profiler → (its result, a summary): wall
+    time; the device's busy time, the union of its kernels', copies' and
+    memsets' intervals (no user annotation: ``record_function`` ranges have
+    a device-side twin that spans kernels and the gaps between them), and
+    its idle share; device ms by kernel group (``_kernel_group``); the
+    AdamW update's device ms (the device intervals inside the device twin
+    of a ``record_function`` range around ``adamw_update``); the top
+    kernels, and the top operators by the device time of the kernels each
+    launched itself."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.training import step as step_mod
+    update = step_mod.adamw_update
+
+    def ranged(*args, **kw):
+        with record_function("adamw_update"):
+            return update(*args, **kw)
+
+    step_mod.adamw_update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = step_call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        step_mod.adamw_update = update
+    spans, kernels, groups, ranges = [], {}, {}, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if ev.name == "adamw_update":            # the range's device twin
+            ranges.append((ev.time_range.start, ev.time_range.end))
+            continue
+        if getattr(ev, "is_user_annotation", False):
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        t = (ev.time_range.end - ev.time_range.start) / 1e3
+        kernels[ev.name[:90]] = kernels.get(ev.name[:90], 0) + t
+        g = _kernel_group(ev.name)
+        groups[g] = groups.get(g, 0) + t
+    ops = {ev.key: ev.self_device_time_total / 1e3
+           for ev in prof.key_averages()
+           if ev.key.startswith("aten::")
+           and (ev.self_device_time_total or 0) > 0}
+    busy = _union_ms(spans)
+    # AdamW: the device intervals inside the range's device twin (None
+    # where this torch records no twin).
+    adamw = _union_ms([(max(a, ra), min(b, rb)) for a, b in spans
+                       for ra, rb in ranges if a < rb and b > ra]) \
+        if ranges else None
+    top = lambda d, n: dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
+    if busy > wall:
+        fail(f"profiled train step: device busy {busy} ms in a {wall} ms "
+             f"wall")
+    return out, dict(
+        wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+        device_events=len(spans), device_ms_summed=sum(kernels.values()),
+        device_ms_by_group=groups, adamw_update_ms=adamw,
+        device_ms_by_kernel=top(kernels, 12),
+        device_ms_by_launching_op=top(ops, 16))
+
+
+def _leaves_close(what: str, got: dict, want: dict, tol: float,
+                  ulp_of: dict | None = None) -> float:
+    """Hold each leaf of ``got`` against ``want`` (dicts path → tensor) at
+    rtol ``tol`` and atol ``tol`` x the leaf's largest |want| (as the port's
+    JAX parity test holds gradients), or, with ``ulp_of``, atol one fp32 ulp
+    of the same path's leaf there.  → the largest |diff| over its
+    allowance (at most 1)."""
+    import torch
+    if sorted(got) != sorted(want):
+        fail(f"{what}: leaves differ: {sorted(set(got) ^ set(want))[:8]}")
+    worst = 0.0
+    for path, g in got.items():
+        g, w = g.double(), want[path].double()
+        if not torch.isfinite(g).all():
+            fail(f"{what} {path}: non-finite")
+        atol = tol * w.abs().max() if ulp_of is None else \
+            torch.finfo(torch.float32).eps * ulp_of[path].double().abs()
+        d, lim = (g - w).abs(), atol + tol * w.abs()
+        if bool((d > lim).any()):
+            fail(f"{what} {path}: differs beyond rtol {tol} and atol "
+                 f"{'one fp32 ulp' if ulp_of else f'{tol} x max |want|'}: "
+                 f"max |diff| {float(d.max())}, max |want| "
+                 f"{float(w.abs().max())}")
+        ratio = torch.where(d == 0, torch.zeros_like(d), d / lim)
+        worst = max([worst] + ([float(ratio.max())] if d.numel() else []))
+    return worst
+
+
+def train_smoke_on_card(arch: str, seed: int, device: str = "cuda") -> dict:
+    """One ``make_train_step`` of the SMOKE config (fp32) from the same
+    parameters and batch on ``device`` and on the host, no kernel launched.
+    The loss agrees at rtol = atol = 2e-4; each gradient leaf at rtol 2e-4
+    and atol 2e-4 x the leaf's largest |grad|.  Each parameter's change on
+    the card agrees at rtol 2e-4 (and one fp32 ulp of the parameter) with
+    the host's AdamW update of the card's own gradients.  The learning rate
+    is the full 1e-3 from the first step, so a missing, doubled or
+    sign-flipped update fails by far.  (The first step moves most entries
+    by lr whatever the gradient's size, so the host's own step is no
+    reference for the update: a gradient within rounding of 0 may take
+    another sign on each device.)"""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import leaves_with_path, path_str, tree_map
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                adamw_update)
+    from repro_torch.training.step import make_train_step
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(seed))
+    batch = make_batch_fn(cfg, 2, 16, "cpu")(seed)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    flat = lambda tree: {path_str(p): t.detach().cpu()
+                         for p, t in leaves_with_path(tree)}
+    runs = {}
+    for dev in ("cpu", device):
+        grads = []
+        step = make_train_step(cfg, opt, compress_grads=lambda g: grads.append(
+            g) or g)
+        p = tree_map(lambda t: t.to(dev), params)
+        reset_launches()
+        new_p, _, m = step(p, adamw_init(p, opt),
+                           {k: v.to(dev) for k, v in batch.items()})
+        launched = read_launches()
+        if any(launched.values()):
+            fail(f"{arch} SMOKE train step launched kernels: {launched}")
+        runs[dev] = (m["loss"].cpu().reshape(1),
+                     tree_map(lambda t: t.cpu(), grads[0]), new_p)
+    loss, grads, new_p = runs[device]
+    want_p = adamw_update(params, grads, adamw_init(params, opt), opt)[0]
+    old = flat(params)
+    moved = lambda tree: {k: v.double() - old[k].double()
+                          for k, v in flat(tree).items()}
+    return dict(arch=cfg.name, loss=float(runs["cpu"][0]),
+                values=sum(t.numel() for t in old.values()),
+                loss_abs_err=_close(loss, runs["cpu"][0], 2e-4),
+                grad_err_over_allowance=_leaves_close(
+                    f"{arch} gradient", flat(grads), flat(runs["cpu"][1]),
+                    2e-4),
+                update_err_over_allowance=_leaves_close(
+                    f"{arch} update", moved(new_p), moved(want_p), 2e-4,
+                    ulp_of=old))
+
+
+def train_phase(seed: int, workdir: str, device: str = "cuda",
+                smoke: bool = False) -> dict:
+    """Qwen3-0.6B at full width and depth through the launcher's loop:
+    8 x 2048 tokens a step from a pinned two-batch stream, AdamW with fp32
+    moments, remat on; a first run that saves at steps 0 and 3 and fails at
+    step 5, a resumed run (steps 4-7, saves at 6 and 7, the fourth save's
+    pruning dropping step 0's segments), every restored leaf's blake2b
+    against the saved one; then each family's SMOKE train step on the card
+    against the host, and the content-addressed sample store."""
+    import math
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import ContentAddressedStore
+    from repro_torch.launch.train import launcher_opt, make_batch_fn
+    from repro_torch.training import loop as loop_mod
+    from repro_torch.training.loop import LoopConfig, run
+    from repro_torch.training.step import make_train_step
+    cfg = get_config("qwen3-0.6b", smoke=smoke)
+    B, S, steps = (2, 64, 8) if smoke else (8, 2048, 8)
+    n_params = cfg.param_count()
+    state_bytes = 3 * 4 * n_params               # fp32 params, m and v
+    need = 4.5 * state_bytes                     # four saves, and room
+    free = shutil.disk_usage(workdir).free
+    if free < need:
+        fail(f"{workdir} has {free} B free; four checkpoints of "
+             f"{state_bytes} B need about {need:.0f}")
+    opt = launcher_opt(1e-3, steps)
+    data = make_batch_fn(cfg, B, S, device)
+    stream = lambda step: data(step % 2)         # two pinned batches
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    train_step = make_train_step(cfg, opt)
+    records, prof = {}, {}
+
+    def timed_step(params, opt_state, batch):
+        step = int(opt_state["step"])            # the loop's step index
+        call = lambda: train_step(params, opt_state, batch)
+        sync()
+        t0 = time.perf_counter()
+        if step == steps - 1 and device == "cuda":
+            out, prof["step"] = train_profile(call)
+        else:
+            out = call()
+        loss = float(out[2]["loss"])
+        records[step] = dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                             profiled=step == steps - 1 and device == "cuda")
+        return out
+
+    logs = []
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    base = loop_mod.CheckpointManager
+    loop_mod.CheckpointManager = _timed_checkpoints(base, hash_step=3)
+    _reset_peak(device)
+    reset_launches()
+    try:
+        try:
+            run(cfg, opt, LoopConfig(total_steps=steps, checkpoint_every=3,
+                                     fail_at_step=5, log_every=1),
+                stream, ckpt_dir, step_fn=timed_step, log_fn=logs.append,
+                device=device)
+        except RuntimeError as e:
+            if "injected failure at step 5" not in str(e):
+                raise
+        else:
+            fail("the first run did not fail at step 5")
+        first = dict(records)
+        records.clear()
+        out = run(cfg, opt, LoopConfig(total_steps=steps, checkpoint_every=3,
+                                       log_every=1),
+                  stream, ckpt_dir, step_fn=timed_step, log_fn=logs.append,
+                  device=device)
+        first_mgr, second_mgr = loop_mod.CheckpointManager.made
+    finally:
+        loop_mod.CheckpointManager = base
+    launches = read_launches()
+    peak = _peak_bytes(device)
+    for line in logs:
+        say(f"  {line}")
+    if any(launches.values()):
+        fail(f"the training path launched kernels: {launches}")
+    if out["resumed_from"] != 3:
+        fail(f"resumed from {out['resumed_from']}, not step 3")
+    if [r["step"] for r in first_mgr.saves] != [0, 3] or \
+            [r["step"] for r in second_mgr.saves] != [6, 7]:
+        fail(f"saves at {[r['step'] for r in first_mgr.saves]} and "
+             f"{[r['step'] for r in second_mgr.saves]}, not [0, 3], [6, 7]")
+    restored = second_mgr.restores[0]
+    if restored["step"] != 3 or restored["hashes"] != first_mgr.saved_hashes:
+        bad = [p for p, h in restored["hashes"].items()
+               if first_mgr.saved_hashes.get(p) != h]
+        fail(f"restored step {restored['step']}: leaves differ from the "
+             f"saved step 3: {bad[:8]}")
+    losses = [first[s]["loss"] for s in range(6)] + \
+        [records[s]["loss"] for s in range(4, steps)]
+    if f"{first[4]['loss']:.4f}" != f"{records[4]['loss']:.4f}":
+        fail(f"step 4: {first[4]['loss']:.4f} before the crash, "
+             f"{records[4]['loss']:.4f} after the resume")
+    if abs(first[5]["loss"] - records[5]["loss"]) > \
+            1e-3 * abs(first[5]["loss"]):
+        fail(f"step 5: {first[5]['loss']} before the crash, "
+             f"{records[5]['loss']} after the resume (rtol 1e-3)")
+    if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
+        fail(f"step 0 loss {losses[0]}, not within 0.5 of "
+             f"ln({cfg.vocab}) = {math.log(cfg.vocab):.4f}")
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        fail(f"the loss did not fall: {losses}")
+    pruned = second_mgr.saves[-1]["segments_pruned"]
+    step0_bytes = first_mgr.saves[0]["bytes"]
+    if pruned * CKPT_SEGMENT < step0_bytes - 2 * CKPT_SEGMENT:
+        fail(f"the last save pruned {pruned} segments of {CKPT_SEGMENT} B, "
+             f"less than step 0's {step0_bytes} B less two segments")
+    timed = [r["ms"] for recs in (first, records) for s, r in recs.items()
+             if not r["profiled"] and not (recs is first and s == 0)]
+    ms = statistics.median(timed)
+    res = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        params=n_params, batch=B, seq=S, tokens_per_step=B * S,
+        remat=cfg.remat, opt=dict(lr=opt.lr, warmup_steps=opt.warmup_steps),
+        losses=losses, step_ms_first_run=[first[s]["ms"] for s in range(6)],
+        step_ms_resumed=[records[s]["ms"] for s in range(4, steps)],
+        ms_per_step=ms, tokens_per_s=B * S / (ms / 1e3), peak_bytes=peak,
+        saves=first_mgr.saves + second_mgr.saves,
+        restore={k: v for k, v in restored.items() if k != "hashes"},
+        restored_leaves=len(restored["hashes"]),
+        wal_bytes_written=sum(r["wal_bytes"] for r in first_mgr.saves
+                              + second_mgr.saves),
+        segments_pruned=pruned, bytes_pruned=pruned * CKPT_SEGMENT,
+        step0_bytes=step0_bytes, launches=launches, profile=prof.get("step"))
+    del out
+    _free(device)
+    res["smoke_on_card"] = {arch: train_smoke_on_card(arch, seed, device)
+                            for arch in TRAIN_FAMILIES}
+    # The content-addressed sample store over the phase's two batches:
+    # 16 rows of 2048 int32 tokens (8 KiB values), blake2b keys.
+    rows = np.concatenate([data(s)["tokens"].cpu().numpy() for s in (0, 1)])
+    store = ContentAddressedStore(os.path.join(workdir, "samples"),
+                                  background=False, device=device)
+    try:
+        keys = store.ingest_tokens(rows, epoch=0)
+        again = store.ingest_tokens(rows, epoch=1)
+        n = len(rows)
+        if keys != again or store.inserted != n or store.dedup_hits != n:
+            fail(f"sample store: {store.inserted} inserted, "
+                 f"{store.dedup_hits} deduplicated of {n} rows twice")
+        if store.get(keys[0]) != np.ascontiguousarray(rows[0]).tobytes():
+            fail("sample store: a row read back wrong")
+        dropped = store.expire_epochs_below(1)
+        res["sample_store"] = dict(rows=n, value_bytes=rows[0].nbytes,
+                                   inserted=store.inserted,
+                                   dedup_hits=store.dedup_hits,
+                                   segments_expired=dropped)
+    finally:
+        store.close()
+    return res
+
+
 # -------------------------------------------------------------- main path
 
 def make_keys(n: int, tag: bytes) -> list[bytes]:
@@ -2007,6 +2446,26 @@ def main() -> None:
         f"{whisper['decode_ms_per_step']:.2f} ms a step, tide_attention "
         f"{whisper['launches']['tide_attention'] // whisper['decode_steps']}"
         f" launches a step, peak {whisper['peak_bytes']} B")
+    workdir = tempfile.mkdtemp(prefix="train-smoke-", dir=ROOT / "build")
+    try:
+        train = train_phase(args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say(f"training path [{card}]: {json.dumps(train)}")
+    saves = ", ".join(f"step {r['step']} {r['s']:.2f} s "
+                      f"({r['GB_s']:.2f} GB/s; writes {r['write_s']:.2f} s)"
+                      for r in train["saves"])
+    prof = train["profile"]
+    say(f"training path [{card}]: {train['arch']} {train['batch']} x "
+        f"{train['seq']} tokens, {train['ms_per_step']:.1f} ms a step, "
+        f"{train['tokens_per_s']:.0f} tokens/s, peak "
+        f"{train['peak_bytes']} B, idle {prof['idle_share']:.3f} of the "
+        f"profiled step; saves {saves}; restore {train['restore']['s']:.2f} "
+        f"s ({train['restore']['GB_s']:.2f} GB/s); WAL "
+        f"{train['wal_bytes_written']} B written, "
+        f"{train['segments_pruned']} segments "
+        f"({train['bytes_pruned']} B) pruned; losses "
+        f"{', '.join(f'{x:.4f}' for x in train['losses'])}")
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
@@ -2018,7 +2477,8 @@ def main() -> None:
                "recurrentgemma-9b-smoke": griffin_smoke["launches"],
                "qwen2-moe-a2.7b": moe["launches"],
                "deepseek-v3-671b-1-layer": deepseek["launches"],
-               "whisper-large-v3": whisper["launches"]}
+               "whisper-large-v3": whisper["launches"],
+               "qwen3-0.6b-train": train["launches"]}
     # These decode paths split every row (S = 4, 33, 2 and 2 on 132 SMs), so
     # each call of D runs its combine pass too.
     for p in ("llama3-8b", "recurrentgemma-9b", "qwen2-moe-a2.7b",
@@ -2035,12 +2495,13 @@ def main() -> None:
                       ("tide_attention", "tide_attention.cu"),
                       ("ssd_scan", "ssd_scan.cu")):
         k = kernels[name]
-        per_path = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        per_path = {p: c[name] for p, c in by_path.items()
+                    if c.get(name) or p == "qwen3-0.6b-train"}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": k["replaces"],
-            "on_main_path": bool(per_path),
+            "on_main_path": any(per_path.values()),
             "launches": sum(per_path.values()),
             "launches_by_path": per_path,
             "mismatches": k.get("mismatches"),

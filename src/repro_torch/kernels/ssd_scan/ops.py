@@ -3,7 +3,10 @@
 ``ssd`` picks by the tensors' device: CUDA tensors launch the kernel
 (``kernel.py``, which raises on what it cannot take) after padding the
 sequence to a chunk multiple, CPU tensors take the plain version
-(``ref.py``), any other device raises.
+(``ref.py``), any other device raises.  The kernel's outputs carry no
+gradient, so ``ssd`` refuses inputs that require one, on every device (a
+forward that would cut the graph on the card fails on the host too): a
+training forward calls the plain version itself (``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     dtype; init_state (b,h,p,n) fp32 or None → (y (b,l,h,p) in x's dtype,
     final_state (b,h,p,n) fp32).  The chunk is ``min(chunk, l)``; padding
     rows carry dt = 0, so they leave the state as it is."""
+    if any(t is not None and t.requires_grad
+           for t in (x, dt, A, Bm, Cm, init_state)):
+        raise ValueError("ssd_scan's kernel does not differentiate: its "
+                         "outputs would cut the autograd graph; train "
+                         "through the plain ssd_scan (ssm_block(..., "
+                         "differentiable=True))")
     if not on_card(x, "ssd_scan"):
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)

@@ -1,14 +1,18 @@
-"""Carry parameters and serving caches across as numpy arrays.
+"""Carry parameters, train states and serving caches across as numpy
+arrays.
 
 The port keeps the JAX package's layout (stacked layers, weights
-``(d_in, d_out)`` applied as ``x @ w``), so each leaf crosses as one
-``torch.from_numpy(...).to(device)``.  On the JAX side the tree is
-``jax.tree.map(np.asarray, params)``.
+``(d_in, d_out)`` applied as ``x @ w``; a train state is ``{"params": ...,
+"opt": {"m": ..., "v": ..., "step": int32 scalar}}``), so each leaf crosses
+as one ``torch.from_numpy(...).to(device)``, scalars and bf16 leaves
+included.  On the JAX side the tree is ``jax.tree.map(np.asarray, tree)``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.tree import tree_map
 
 # Leaves read in fp32 at every use: norm scales (``rms_norm`` widens them:
 # the layers', MLA's ``q_a_norm`` / ``kv_a_norm``, whisper's ``ln_x`` and
@@ -24,26 +28,22 @@ FP32_KEYS = frozenset({"ln1", "ln2", "ln_x", "ln", "final_norm", "enc_norm",
 
 
 def _leaf(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:              # arrays that JAX hands out
-        a = a.copy()
+    a = np.asarray(a)
+    # A copy where torch cannot share the memory (arrays that JAX hands out
+    # are read-only); ``copy`` keeps a 0-d array 0-d, where
+    # ``np.ascontiguousarray`` would make it 1-d.
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy(order="C")
     if a.dtype.name == "bfloat16":         # ml_dtypes: no numpy counterpart
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
             device)
     return torch.from_numpy(a).to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
 def params_from_numpy(tree, device="cuda"):
-    """A parameter tree of numpy arrays → the same tree of tensors."""
-    return _map(tree, lambda a: _leaf(a, device))
+    """A parameter tree (or a whole train state) of numpy arrays → the same
+    tree of tensors."""
+    return tree_map(lambda a: _leaf(a, device), tree)
 
 
 def cache_from_numpy(cache: dict, device="cuda") -> dict:

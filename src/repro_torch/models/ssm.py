@@ -2,7 +2,10 @@
 
 The JAX package's ``models/ssm.py``, leaf for leaf.  Prefill and forward run
 the chunked SSD through ``ops.ssd``: kernel E (``csrc/ssd_scan.cu``) on the
-card, its plain version (``ssd_scan``, re-exported here) on the CPU.  Decode
+card, its plain version (``ssd_scan``, re-exported here) on the CPU.
+Training asks for the plain version on every device
+(``ssm_block(..., differentiable=True)``): E's outputs carry no gradient,
+and the JAX package trains through its plain ``ssd_scan`` too.  Decode
 is the O(1) recurrent update in plain tensor ops, as in the JAX package,
 which has no kernel there.  Projections stay separate matrices (``in_z``,
 ``in_x``, ``in_bc``, ``in_dt``), as there.
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.kernels.ssd_scan.ref import ssd_scan  # noqa: F401
+from repro_torch.kernels.ssd_scan.ref import ssd_scan
 
 from .base import ModelConfig
 from .layers import init_linear, rms_norm
@@ -76,8 +79,10 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
               conv_x_state=None, conv_bc_state=None, ssm_state=None,
-              decode: bool = False):
-    """Full Mamba-2 block.
+              decode: bool = False, differentiable: bool = False):
+    """Full Mamba-2 block.  ``differentiable`` runs the chunked SSD as the
+    plain ``ssd_scan``, which autograd differentiates, where ``ops.ssd``
+    launches kernel E on the card.
     Returns (y, (new_conv_x, new_conv_bc, new_ssm_state))."""
     s = cfg.ssm
     d_inner, n_heads, _ = ssm_dims(cfg)
@@ -111,8 +116,9 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
         y = y[:, None].to(dt_)
         new_ssm = h
     else:
-        y, new_ssm = ssd(xs, dt, A, Bm, Cm, chunk=s.chunk_size,
-                         init_state=ssm_state)
+        scan = ssd_scan if differentiable else ssd
+        y, new_ssm = scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size,
+                          init_state=ssm_state)
     y = y + xs * params["D"].to(dt_)[None, None, :, None]
     y = y.reshape(B, L, d_inner)
     y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)

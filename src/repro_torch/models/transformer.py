@@ -13,12 +13,27 @@ single blocks; encdec: ``enc_layers`` and ``enc_norm`` too), whose leaves
 stack every layer on a leading axis, so ``convert.py`` carries the JAX
 package's parameters across leaf for leaf.  A Python loop over the layers
 takes the place of ``lax.scan``.  DeepSeek's MTP module (``mtp``) feeds
-only the JAX package's training loss, which is not ported (ROADMAP A.12):
-its parameters are made and carried, and nothing here computes it.
+only the training loss (``train_loss``).
+
+``forward`` and ``encode`` take each stacked leaf apart by one ``unbind``
+(``layers``), whose backward is one ``stack``; ``layer(v, i)`` per layer
+would make autograd write a zero tensor the size of the whole leaf for each
+layer's select.  Serving's decode and prefill (``serve.py``) take one layer
+at a time with ``layer``.
+
+Training (``forward(..., train=True)``, which ``train_loss`` calls) differs
+from the plain forward in two ways, neither of which changes a value:
+- where the JAX package wraps a layer body in ``jax.checkpoint`` under
+  ``cfg.remat`` (the dense/moe and ssm layers, a griffin group, the encoder
+  and whisper decoder layers), the same body runs under
+  ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``;
+- the SSM layers take the plain chunked SSD, which autograd differentiates,
+  not kernel E, as the JAX package trains through its plain ``ssd_scan``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .base import ModelConfig
 from .griffin import init_recurrent_block, recurrent_block
@@ -47,6 +62,22 @@ def layer(stacked: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked leaves."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def layers(stacked: dict, n: int) -> list[dict]:
+    """All ``n`` layers' parameters, each stacked leaf taken apart by one
+    ``unbind``: its backward is one ``stack`` of the layers' gradients."""
+    cols = {k: layers(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _body(cfg: ModelConfig, train: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when training under
+    ``cfg.remat`` (the JAX package's ``jax.checkpoint(body)``)."""
+    if train and cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # =========================================================== initialization
@@ -238,7 +269,15 @@ def griffin_blocks(params, cfg: ModelConfig):
         yield None, ti, pattern[ti % len(pattern)], blk
 
 
-def encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+def _encoder_layer(cfg: ModelConfig, layer_p, x):
+    h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
+    x = x + gqa_block(layer_p["attn"], h, cfg)[0]
+    h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
+    return x + mlp_block(layer_p["mlp"], h, cfg.act)
+
+
+def encode(params, cfg: ModelConfig, frames, train: bool = False
+           ) -> torch.Tensor:
     """Whisper encoder over precomputed frame embeddings (frontend stub).
     Its self-attention is causal, as the JAX package's is (``cfg.causal``)."""
     x = frames.to(cfg.adtype)
@@ -247,12 +286,8 @@ def encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
-    for i in range(cfg.n_encoder_layers):
-        layer_p = layer(params["enc_layers"], i)
-        h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
-        x = x + gqa_block(layer_p["attn"], h, cfg)[0]
-        h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
-        x = x + mlp_block(layer_p["mlp"], h, cfg.act)
+    for layer_p in layers(params["enc_layers"], cfg.n_encoder_layers):
+        x = _body(cfg, train, _encoder_layer, cfg, layer_p, x)
     return rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -269,36 +304,98 @@ def whisper_layer(cfg: ModelConfig, layer_p, x, enc):
     return x + mlp_block(layer_p["mlp"], h, cfg.act), kv, (ck, cv)
 
 
+def _griffin_group(cfg: ModelConfig, group_p, x, cos, sin):
+    for i, kind in enumerate(cfg.griffin.pattern):
+        x = griffin_block(cfg, group_p[f"blk{i}"], x, cos, sin, kind)[0]
+    return x
+
+
+def _ssm_layer(cfg: ModelConfig, layer_p, x, differentiable: bool):
+    h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
+    return x + ssm_block(layer_p["ssm"], h, cfg,
+                         differentiable=differentiable)[0]
+
+
 def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
-            mrope_positions=None, frames=None
+            mrope_positions=None, frames=None, train: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits (B,S,V), aux_loss)."""
+    """Full-sequence forward → (logits (B,S,V), aux_loss).  ``train`` takes
+    the training route (module docstring): the same values, a graph that
+    autograd can differentiate through every layer."""
     require_family(cfg)
     B, S = tokens.shape
     x = with_vision(cfg, embed_tokens(params, cfg, tokens), vision_embed)
     aux = torch.zeros((), device=x.device)
     if cfg.family == "encdec":
-        enc = encode(params, cfg, frames)
+        enc = encode(params, cfg, frames, train)
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
         x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
-        for i in range(cfg.n_layers):
-            x = whisper_layer(cfg, layer(params["layers"], i), x, enc)[0]
+        for layer_p in layers(params["layers"], cfg.n_layers):
+            x = _body(cfg, train, lambda p, xc: whisper_layer(
+                cfg, p, xc, enc)[0], layer_p, x)
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            layer_p = layer(params["layers"], i)
-            h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
-            x = x + ssm_block(layer_p["ssm"], h, cfg)[0]
+        for layer_p in layers(params["layers"], cfg.n_layers):
+            x = _body(cfg, train, _ssm_layer, cfg, layer_p, x, train)
     else:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         cos, sin = _angles(cfg, positions, mrope_positions)
         if cfg.family == "griffin":
-            for _, _, kind, blk in griffin_blocks(params, cfg):
-                x = griffin_block(cfg, blk, x, cos, sin, kind)[0]
+            pattern = cfg.griffin.pattern
+            n_groups, _ = griffin_layout(cfg)
+            for group_p in layers(params["groups"], n_groups):
+                x = _body(cfg, train, _griffin_group, cfg, group_p, x, cos,
+                          sin)
+            for ti, blk in enumerate(params["tail"]):
+                x = griffin_block(cfg, blk, x, cos, sin,
+                                  pattern[ti % len(pattern)])[0]
         else:
-            for i in range(cfg.n_layers):
-                x, a = _dense_layer_fwd(cfg, layer(params["layers"], i), x,
-                                        cos, sin)
+            for layer_p in layers(params["layers"], cfg.n_layers):
+                x, a = _body(cfg, train, _dense_layer_fwd, cfg, layer_p, x,
+                             cos, sin)
                 if a is not None:
                     aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x), aux
+
+
+# ==================================================================== loss
+def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Cross-entropy in fp32, plus 0.3 x the MTP loss for a moe config with
+    ``mtp_depth``, plus 0.01 x the MoE auxiliary loss."""
+    logits, aux = forward(
+        params, cfg, batch["tokens"],
+        vision_embed=batch.get("vision_embed"),
+        mrope_positions=batch.get("mrope_positions"),
+        frames=batch.get("frames"), train=True)
+    loss = _xent(logits, batch["labels"], cfg)
+    if cfg.mtp_depth and cfg.family == "moe":
+        loss = loss + 0.3 * _mtp_loss(params, cfg, batch)
+    return loss + 0.01 * aux
+
+
+def _xent(logits, labels, cfg) -> torch.Tensor:
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ll = lp.gather(-1, labels.long()[..., None])[..., 0]
+    return -ll.mean()
+
+
+def _mtp_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """DeepSeek-style multi-token prediction: predict t+2 from a fused
+    representation of (hidden_t, embed(token_{t+1})) through one extra
+    layer; the hidden state is the embedding, as in the JAX package."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    nxt = torch.roll(x, -1, dims=1)
+    h = torch.cat([x, nxt], dim=-1) @ params["mtp"]["proj"].to(x.dtype)
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    cos, sin = _angles(cfg, pos)
+    lp = params["mtp"]["layer"]
+    out, _ = self_attention(cfg, lp["attn"],
+                            rms_norm(lp["ln1"], h, cfg.norm_eps), cos, sin)
+    h = h + out
+    h = h + mlp_block(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
+                      cfg.act)
+    h = rms_norm(params["mtp"]["ln"], h, cfg.norm_eps)
+    return _xent(lm_logits(params, cfg, h), torch.roll(labels, -1, dims=1),
+                 cfg)

@@ -47,3 +47,24 @@ def test_helper_defaults_to_the_card(name):
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             call()
+
+
+def test_training_defaults_need_a_card(tmp_path, monkeypatch):
+    """The checkpoint manager, the training loop and the sample store
+    default to the card and refuse to start without one, before any I/O."""
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import ContentAddressedStore
+    from repro_torch.training.loop import LoopConfig, run
+    from repro_torch.training.optimizer import AdamWConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (CheckpointManager, ContentAddressedStore, run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CheckpointManager(str(tmp_path / "ckpt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContentAddressedStore(str(tmp_path / "samples"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(get_config("llama3-8b", smoke=True), AdamWConfig(),
+            LoopConfig(total_steps=1), lambda step: {}, str(tmp_path / "run"))
+    assert not any(tmp_path.iterdir())
+    CheckpointManager(str(tmp_path / "cpu"), device="cpu").close()

@@ -39,7 +39,9 @@ def test_imports_neither_jax_nor_repro():
     assert "repro_torch.serving.engine" in mods
     for mod in ("core.tidestore.shard", "core.tidestore.repair",
                 "core.tidestore.simulate", "serving.admission",
-                "serving.kv_server"):
+                "serving.kv_server", "training.optimizer", "training.step",
+                "training.loop", "training.straggler", "core.checkpoint",
+                "core.tree", "data.pipeline", "launch.train"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
