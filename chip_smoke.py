@@ -3,8 +3,9 @@
 sharded storage server, KV-WAL decode serving of Llama-3-8B and
 Qwen2-MoE-A2.7B, Mamba-2 serving, RecurrentGemma decode through the
 KV-WAL's window and pruning, DeepSeek-V3's MLA over the latent arena,
-whisper's encoder-decoder, and Qwen3-0.6B training with its checkpoints in
-the port's ``TideDB``.
+whisper's encoder-decoder, Qwen3-0.6B training with its checkpoints in
+the port's ``TideDB``, and the scale-out path (DTensor placements, int8
+gradient compression, the pipeline, the roofline and one dry-run cell).
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -125,6 +126,26 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    the host (loss, gradients and updated parameters at 2e-4), and the
    content-addressed sample store over the phase's 16 rows (8 KiB values,
    ingested twice under two epochs).
+13. Scale-out and roofline (after phase 12, in its work directory): (a) an
+   NCCL process group of one rank over a ``FileStore`` and
+   ``make_host_mesh()``, a (1, 1) ("data", "model") mesh; (b) two
+   Qwen3-0.6B train steps at phase 12's settings with the state placed by
+   ``param_specs`` in ``fsdp`` mode (DTensors, whose backward sums the
+   gradients itself) and the error-feedback int8 compressor as
+   ``compress_grads``, against the same steps on plain tensors with the
+   same compressor (losses and every leaf at phase 12's card-against-host
+   tolerances, bit-equality reported); in the plain steps' hook
+   ``compressed_psum`` over the mesh's data group, held bit for bit
+   against the int8 round trip of one rank, and the hook's device time
+   beside its byte bound; (c) phase 12's newest checkpoint restored onto
+   the mesh's placements, each
+   leaf's blake2b equal to the plain restore's; (d) ``pipeline_forward``
+   with one stage against the sequential loop at 1e-5; (e) ``op_cost`` and
+   the roofline of phase 12's train step and of the serving phase's
+   Llama-3-8B decode step, beside their measured times (MFU, multiple of
+   the bound); (f) the dry run's qwen3-0.6b x train_4k cell on a fake
+   process group of 256 ranks, in a subprocess, status ``ok`` and no op
+   run replicated but those ``dryrun.REPLICABLE`` names.
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -703,12 +724,18 @@ def serve_path(cfg, seed: int, device: str = "cuda", *, requests: int = 16,
         fail(f"{engine.segments_recycled} segments recycled, the requests "
              f"used {blocks} blocks")
     tokens = requests * new_tokens
+    # K/V rows kernel D read over the run: a request's j-th decode step
+    # reads its prompt and j tokens; an empty slot reads the one row its
+    # step appends.
+    busy = requests * (new_tokens - 1)
+    kv_reads = sum(len(p) * (new_tokens - 1) + new_tokens * (new_tokens - 1)
+                   // 2 for p in prompts) + slots * engine.decode_steps - busy
     return engine, dict(
         arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         slots=slots, max_seq=max_seq, requests=requests,
         prompt_tokens=sum(len(p) for p in prompts), new_tokens=tokens,
         launches=launches, decode_steps=engine.decode_steps,
-        segments_recycled=engine.segments_recycled, wall_s=wall,
+        kv_reads=kv_reads, segments_recycled=engine.segments_recycled, wall_s=wall,
         tokens_per_s=tokens / wall, init_peak_bytes=init_peak,
         peak_bytes=_peak_bytes(device),
         prefill_ms_per_request=engine.prefill_s / engine.prefills * 1e3,
@@ -1637,10 +1664,10 @@ def _timed_checkpoints(base, hash_step: int):
             self._write_s = time.perf_counter() - t0
             self._written = host_state
 
-        def restore(self, like, step=None):
+        def restore(self, like, step=None, shardings=None):
             self._sync()
             t0 = time.perf_counter()
-            out, got = super().restore(like, step)
+            out, got = super().restore(like, step, shardings)
             self._sync()
             s = time.perf_counter() - t0
             if out is not None:
@@ -1984,6 +2011,383 @@ def train_phase(seed: int, workdir: str, device: str = "cuda",
                                    segments_expired=dropped)
     finally:
         store.close()
+    return res
+
+
+# ------------------------------------------------------- scale-out path
+
+SCALEOUT_STEPS = 2
+
+
+def _ef_hook(group=None, timings: list | None = None,
+             device: str = "cuda"):
+    """``make_train_step``'s ``compress_grads``: the error-feedback int8
+    compressor (its residuals carried from step to step), whose output the
+    step applies.  Given a ``group`` (of one rank), ``compressed_psum`` of
+    that output over it too, held bit for bit against its definition at
+    one rank, the int8 values at their own scale, and not applied: at one
+    rank it only requantizes values already on the int8 grid, which moves
+    them by rounding, and AdamW's second step amplifies such rounding where
+    its momentum cancels, so the steps could not be held against the
+    DTensor route's.  With ``timings`` each call's time is appended (device
+    ms from CUDA events on the card; ``compressed_psum`` included)."""
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed.compression import (
+        compressed_psum, dequantize_int8, make_error_feedback_compressor,
+        quantize_int8)
+    compress, init = make_error_feedback_compressor()
+    state = {}
+
+    def hook(grads):
+        if device == "cuda" and timings is not None:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+        h0 = time.perf_counter()
+        if "r" not in state:
+            state["r"] = init(grads)
+        out, state["r"] = compress(grads, state["r"])
+        summed = compressed_psum(out, group) if group is not None else None
+        if timings is not None:
+            if device == "cuda":
+                t1.record()
+                t1.synchronize()
+                timings.append(t0.elapsed_time(t1))
+            else:
+                timings.append((time.perf_counter() - h0) * 1e3)
+        if summed is not None:
+            for o, got in zip(leaves(out), leaves(summed), strict=True):
+                if not torch.equal(got, dequantize_int8(
+                        *quantize_int8(o)).to(o.dtype)):
+                    fail("compressed_psum over one rank is not the int8 "
+                         "round trip of its input")
+        return out
+
+    return hook
+
+
+def _flat_state(tree) -> dict:
+    """path → the leaf's whole value (a DTensor gathered)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.tree import leaves_with_path, path_str
+    return {path_str(p): t.full_tensor() if isinstance(t, DTensor) else t
+            for p, t in leaves_with_path(tree)}
+
+
+def _scaleout_steps(cfg, opt, seed, data, mesh, group, device, sharded,
+                    timings):
+    """``SCALEOUT_STEPS`` train steps from the seeded init with the
+    error-feedback compressor as ``compress_grads`` → (losses, final
+    parameters): on DTensors placed by ``param_specs`` in ``fsdp`` mode
+    (``sharded``; DTensor sums the gradients over the mesh itself), or on
+    plain tensors, whose hook also checks ``compressed_psum`` over
+    ``group`` (``_ef_hook``)."""
+    import contextlib
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding
+    from repro_torch.training.step import init_train_state, make_train_step
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params, opt_state = init_train_state(cfg, opt, gen)
+    batches = [data(s % 2) for s in range(SCALEOUT_STEPS)]
+    ctx = contextlib.nullcontext()
+    if sharded:
+        pspec = sharding.param_specs(params, mesh, mode="fsdp")
+        params = sharding.distribute(params, pspec, mesh)
+        opt_state = sharding.distribute(
+            opt_state, sharding.opt_specs(opt_state, pspec), mesh)
+        batches = [sharding.distribute(
+            b, sharding.input_specs_tree(b, mesh, mode="fsdp"), mesh)
+            for b in batches]
+        ctx = implicit_replication()
+    step = make_train_step(cfg, opt, compress_grads=_ef_hook(
+        None if sharded else group, timings, device))
+    losses = []
+    with ctx:
+        for b in batches:
+            params, opt_state, m = step(params, opt_state, b)
+            loss = m["loss"]
+            losses.append(float(loss.full_tensor() if sharded else loss))
+    del opt_state
+    return losses, _flat_state(params)
+
+
+def _llama_decode_cost(batch: int, max_seq: int, kv_reads: float):
+    """The config and the work of Llama-3-8B's decode step over ``batch``
+    slots of ``max_seq`` positions (bf16 weights, as ``ServingEngine``
+    serves them) as the serving phase timed it, through kernel D →
+    (cfg, the timed program's Cost, the plain step's ``op_cost``).  The
+    plain step's D gathers every slot's whole arena, and ``op_cost``
+    counts each weight twice (the step's input and a product's operand),
+    as the JAX package's ``jaxpr_cost`` does; neither is moved by the
+    program that was timed.  Its Cost is the least it must do: FLOPs are
+    ``op_cost``'s with D taken out plus D's 4 x live x H x d; bytes are
+    each weight read once, the ``kv_reads`` live K and V rows a step (this
+    run's mean), the appended rows and the fp32 logits."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import param_count_exact
+    from repro_torch.roofline.op_cost import Cost, op_cost
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.step import (abstract_train_state,
+                                           make_decode_step)
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              param_dtype="bfloat16")
+    params, _ = abstract_train_state(cfg, AdamWConfig())
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    cache = {k: meta(sh, dt) for k, (sh, dt) in
+             serve.cache_spec(cfg, batch, max_seq).items()}
+    tokens = meta((batch,), torch.int32)
+    plain = op_cost(make_decode_step(cfg), params, cache, tokens)
+    real_d = serve.decode_attention
+    serve.decode_attention = lambda q, *a, **kw: torch.empty_like(q)
+    try:
+        rest = op_cost(make_decode_step(cfg), params, cache, tokens)
+    finally:
+        serve.decode_attention = real_d
+    H, KH, d, L = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    row = KH * d * 2 * 2                      # one position's K and V, bf16
+    nbytes = (param_count_exact(cfg) * 2 + L * (kv_reads + batch) * row
+              + batch * cfg.vocab * 4)
+    return cfg, Cost(rest.flops + L * 4.0 * kv_reads * H * d, nbytes), plain
+
+
+def _roofline_line(name, cfg, cost, n_tokens, kind, ms, peak) -> dict:
+    """The roofline of a step measured on the card: FLOPs and bytes
+    (``op_cost``), its compute and memory terms, the measured step time,
+    its MFU (``model_flops`` over time x 989e12) and the time as a multiple
+    of the bound."""
+    from repro_torch.roofline import analysis
+    rf = analysis.Roofline(
+        arch=cfg.name, shape=name, mesh="1", chips=1,
+        flops_per_device=cost.flops, bytes_per_device=cost.bytes,
+        collective_bytes=0.0, peak_memory_per_device=float(peak),
+        model_flops=analysis.model_flops(cfg, n_tokens, kind)).to_dict()
+    bound_ms = max(rf["t_compute"], rf["t_memory"]) * 1e3
+    return dict(step=name, flops=cost.flops, bytes=cost.bytes,
+                t_compute_ms=rf["t_compute"] * 1e3,
+                t_memory_ms=rf["t_memory"] * 1e3, bound_ms=bound_ms,
+                bound_by=rf["bottleneck"], model_flops=rf["model_flops"],
+                measured_ms=ms,
+                mfu=rf["model_flops"] / (ms / 1e3 * BF16_OPS_PER_S),
+                over_bound=ms / bound_ms)
+
+
+def dryrun_cell_subprocess(arch: str = "qwen3-0.6b",
+                           shape: str = "train_4k") -> dict:
+    """``lower_cell(arch, shape, multi_pod=False)`` on the fake 256-rank
+    group, in a process of its own (the fake group replaces the live one,
+    and this process's NCCL group must stay)."""
+    code = ("import json, logging\n"
+            "logging.getLogger('torch.distributed.tensor')"
+            ".setLevel(logging.ERROR)\n"
+            "from repro_torch.launch.dryrun import lower_cell\n"
+            f"e = lower_cell({arch!r}, {shape!r}, multi_pod=False)\n"
+            "print('DRYRUN ' + json.dumps(e))\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, env=env)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("DRYRUN ")]
+    if res.returncode != 0 or not lines:
+        fail(f"dry-run cell {arch} x {shape}: exit {res.returncode}: "
+             f"{res.stderr.strip()[-2000:]}")
+    entry = json.loads(lines[-1][len("DRYRUN "):])
+    entry["subprocess_s"] = time.perf_counter() - t0
+    return entry
+
+
+def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
+                   device: str = "cuda", smoke: bool = False) -> dict:
+    """Phase 13, after phase 12 and in its work directory: (a) a process
+    group of one rank (NCCL on the card, over a ``FileStore`` in the work
+    directory) and ``make_host_mesh()``; (b) two train steps of Qwen3-0.6B
+    at phase 12's settings, the state placed by ``param_specs`` in ``fsdp``
+    mode and the error-feedback compressor as ``compress_grads``, against
+    the same steps on plain tensors, whose hook also checks
+    ``compressed_psum`` over the group, and that hook's time; (c) phase
+    12's newest checkpoint restored onto the mesh's placements, leaf for
+    leaf equal to the plain restore; (d) ``pipeline_forward`` with one
+    stage against the sequential loop; (e) the roofline of phase 12's train step and the serving phase's
+    Llama-3-8B decode step beside their measured times; (f) the dry run's
+    qwen3-0.6b x train_4k cell on a fake group of 256 ranks, in a
+    subprocess."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.dryrun import REPLICABLE
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import launcher_opt, make_batch_fn
+    from repro_torch.roofline.op_cost import op_cost
+    from repro_torch.training.step import (abstract_train_state,
+                                           make_train_step)
+    res = {}
+    t_phase = time.perf_counter()
+    # (a) the process group and the host mesh
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    backend = "nccl" if device == "cuda" else "gloo"
+    store = dist.FileStore(os.path.join(workdir, "pg-store"), 1)
+    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device=device)
+        if tuple(mesh.shape) != (1, 1) or \
+                mesh.mesh_dim_names != ("data", "model"):
+            fail(f"host mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, not "
+                 f"(1, 1) ('data', 'model')")
+        group = mesh.get_group("data")
+        res["process_group"] = dict(backend=dist.get_backend(),
+                                    world_size=dist.get_world_size(),
+                                    mesh=list(mesh.shape),
+                                    axes=list(mesh.mesh_dim_names))
+
+        # (b) sharded, compressed steps against plain ones
+        cfg = get_config("qwen3-0.6b", smoke=smoke)
+        B, S = (2, 64) if smoke else (8, 2048)
+        opt = launcher_opt(1e-3, 8)
+        data = make_batch_fn(cfg, B, S, device)
+        reset_launches()
+        _reset_peak(device)
+        hook_ms = []
+        t0 = time.perf_counter()
+        s_losses, s_params = _scaleout_steps(cfg, opt, seed, data, mesh,
+                                             group, device, True, None)
+        sharded_s = time.perf_counter() - t0
+        _free(device)
+        t0 = time.perf_counter()
+        p_losses, p_params = _scaleout_steps(cfg, opt, seed, data, mesh,
+                                             group, device, False, hook_ms)
+        plain_s = time.perf_counter() - t0
+        launches = read_launches()
+        if any(launches.values()):
+            fail(f"the scale-out path launched kernels: {launches}")
+        bit_equal, worst, worst_leaf = True, 0.0, None
+        if sorted(s_params) != sorted(p_params):
+            fail("sharded and plain states have different leaves")
+        for path, w in p_params.items():
+            g = s_params[path]
+            d = float((g.double() - w.double()).abs().max())
+            bit_equal &= bool(torch.equal(g, w))
+            if d > worst:
+                worst, worst_leaf = d, path
+        tol = _leaves_close("sharded train step", s_params, p_params, 2e-4)
+        for a, b in zip(s_losses, p_losses):
+            if abs(a - b) > 2e-4 * abs(b) + 2e-4:
+                fail(f"sharded losses {s_losses}, plain {p_losses}")
+        n = sum(t.numel() for t in p_params.values())
+        hook_bound_ms = 16 * n / HBM_BYTES_PER_S * 1e3
+        res["sharded_step"] = dict(
+            arch=cfg.name, batch=B, seq=S, steps=SCALEOUT_STEPS,
+            mode="fsdp", sharded_losses=s_losses, plain_losses=p_losses,
+            losses_equal=s_losses == p_losses, leaves_bit_equal=bit_equal,
+            max_leaf_abs_diff=worst, max_diff_leaf=worst_leaf,
+            err_over_allowance=tol, sharded_s=sharded_s, plain_s=plain_s,
+            peak_bytes=_peak_bytes(device), launches=launches,
+            hook_ms=hook_ms, hook_clock="device" if device == "cuda"
+            else "host", hook_bound_ms=hook_bound_ms,
+            hook_bound_bytes=16 * n)
+        del s_params, p_params
+        _free(device)
+
+        # (c) the newest checkpoint restored onto the mesh's placements
+        ckpt = CheckpointManager(os.path.join(workdir, "ckpt"),
+                                 device=device)
+        try:
+            params_abs, opt_abs = abstract_train_state(cfg, opt)
+            like = {"params": params_abs, "opt": opt_abs}
+            pspec = sharding.param_specs(params_abs, mesh)
+            shardings = sharding.named(
+                {"params": pspec, "opt": sharding.opt_specs(opt_abs, pspec)},
+                mesh)
+            t0 = time.perf_counter()
+            plain, step = ckpt.restore(like)
+            plain_hashes = _leaf_hashes(plain)
+            del plain
+            _free(device)
+            t1 = time.perf_counter()
+            placed, step2 = ckpt.restore(like, shardings=shardings)
+            kinds = {type(t).__name__ for t in leaves(placed)}
+            placed_hashes = _leaf_hashes(_flat_state(placed))
+            restore_s = time.perf_counter() - t1
+            del placed
+            _free(device)
+        finally:
+            ckpt.close()
+        if step is None or step != step2:
+            fail(f"restored steps {step} and {step2}")
+        if kinds != {"DTensor"}:
+            fail(f"restored leaves with shardings are {kinds}")
+        if placed_hashes != plain_hashes:
+            bad = [p for p in plain_hashes
+                   if placed_hashes.get(p) != plain_hashes[p]]
+            fail(f"leaves restored onto placements differ: {bad[:8]}")
+        res["restore"] = dict(step=step, leaves=len(plain_hashes),
+                              plain_s=t1 - t0, placed_s=restore_s)
+
+        # (d) the pipeline with one stage against the sequential loop
+        L, PB, D = 8, 8, 1024
+        g = torch.Generator(device=device).manual_seed(seed)
+        pp = {"w": torch.randn(L, D, D, generator=g, device=device) * D**-.5,
+              "b": torch.randn(L, D, generator=g, device=device) * 0.1}
+        x = torch.randn(PB, D, generator=g, device=device)
+        layer_fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])
+        want = x
+        for i in range(L):
+            want = layer_fn({"w": pp["w"][i], "b": pp["b"][i]}, want)
+        got = pipeline_forward(layer_fn, pp, x, mesh=mesh,
+                               stage_axis="model", n_microbatches=4)
+        perr = _close(got, want, 1e-5)
+        res["pipeline"] = dict(layers=L, batch=PB, width=D, microbatches=4,
+                               stages=1, max_abs_err=perr)
+    finally:
+        dist.destroy_process_group()
+
+    # (e) the roofline of the measured steps
+    tcfg = get_config("qwen3-0.6b", smoke=smoke)
+    tb, ts = (2, 64) if smoke else (8, 2048)
+    topt = launcher_opt(1e-3, 8)
+    t0 = time.perf_counter()
+    tp, to = abstract_train_state(tcfg, topt)
+    tokens = torch.empty((tb, ts), dtype=torch.int32, device="meta")
+    tcost = op_cost(make_train_step(tcfg, topt), tp, to,
+                    {"tokens": tokens, "labels": tokens})
+    lcfg, lcost, lplain = _llama_decode_cost(
+        8, 2048, served["kv_reads"] / served["decode_steps"])
+    res["op_cost_s"] = time.perf_counter() - t0
+    res["roofline"] = [
+        _roofline_line(f"train {tb}x{ts}", tcfg, tcost, tb * ts, "train",
+                       train["ms_per_step"], train["peak_bytes"]),
+        _roofline_line("decode 8 slots x 2048", lcfg, lcost, 8, "decode",
+                       served["decode_ms_per_step"], served.get(
+                           "peak_bytes", 0))]
+    # op_cost of the plain step (D's whole-arena gathers, each weight
+    # counted twice): not the program that was timed; printed beside it.
+    res["roofline"][1]["plain_d"] = dict(
+        flops=lplain.flops, bytes=lplain.bytes,
+        bound_ms=max(lplain.flops / BF16_OPS_PER_S,
+                     lplain.bytes / HBM_BYTES_PER_S) * 1e3)
+
+    # (f) the dry-run cell on the fake 256-rank group
+    cell = dryrun_cell_subprocess()
+    if cell.get("status") != "ok":
+        fail(f"dry-run cell: {cell.get('status')}")
+    if not set(cell["replicated_calls"]) <= REPLICABLE:
+        fail(f"dry-run cell ran ops replicated outside the named ones: "
+             f"{cell['replicated_calls']}")
+    res["dryrun_cell"] = {k: cell[k] for k in ("arch", "shape", "mesh",
+                                               "status", "cost_s", "trace_s",
+                                               "memory", "replicated_calls",
+                                               "roofline", "subprocess_s")}
+    res["phase_s"] = time.perf_counter() - t_phase
+    gc.collect()
     return res
 
 
@@ -2449,6 +2853,8 @@ def main() -> None:
     workdir = tempfile.mkdtemp(prefix="train-smoke-", dir=ROOT / "build")
     try:
         train = train_phase(args.seed, workdir)
+        # Phase 13 restores the checkpoints phase 12 left in workdir.
+        scaleout = scaleout_phase(args.seed, workdir, train, served)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"training path [{card}]: {json.dumps(train)}")
@@ -2466,6 +2872,38 @@ def main() -> None:
         f"{train['segments_pruned']} segments "
         f"({train['bytes_pruned']} B) pruned; losses "
         f"{', '.join(f'{x:.4f}' for x in train['losses'])}")
+    say(f"scale-out path [{card}]: {json.dumps(scaleout)}")
+    sh = scaleout["sharded_step"]
+    say(f"scale-out path [{card}]: {scaleout['process_group']['backend']} "
+        f"world {scaleout['process_group']['world_size']}, mesh "
+        f"{scaleout['process_group']['mesh']}; {sh['arch']} {sh['batch']} x "
+        f"{sh['seq']} {sh['mode']}: losses sharded "
+        f"{sh['sharded_losses']}, plain {sh['plain_losses']}, leaves "
+        f"{'bit-equal' if sh['leaves_bit_equal'] else 'not bit-equal'} "
+        f"(max |diff| {sh['max_leaf_abs_diff']} at {sh['max_diff_leaf']}); "
+        f"compression hook {sh['hook_ms']} ms ({sh['hook_clock']}), bound "
+        f"{sh['hook_bound_ms']:.3f} ms; restore onto placements step "
+        f"{scaleout['restore']['step']}, {scaleout['restore']['leaves']} "
+        f"leaves equal; pipeline max |err| "
+        f"{scaleout['pipeline']['max_abs_err']}; phase "
+        f"{scaleout['phase_s']:.1f} s")
+    for r in scaleout["roofline"]:
+        say(f"roofline [{card}]: {r['step']}: {r['flops']:.4e} FLOP, "
+            f"{r['bytes']:.4e} B, t_compute {r['t_compute_ms']:.3f} ms, "
+            f"t_memory {r['t_memory_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+            f"ms ({r['bound_by']}), measured {r['measured_ms']:.2f} ms, MFU "
+            f"{r['mfu']:.4f}, {r['over_bound']:.2f}x the bound" + (
+                f"; op_cost of the plain step (whole-arena gathers) "
+                f"{r['plain_d']['bytes']:.4e} B, bound "
+                f"{r['plain_d']['bound_ms']:.3f} ms" if "plain_d" in r
+                else ""))
+    rf = scaleout["dryrun_cell"]["roofline"]
+    say(f"dry-run cell: {rf['arch']} x {rf['shape']} x {rf['mesh']} "
+        f"({rf['chips']} fake ranks): t_compute {rf['t_compute']:.4f} s, "
+        f"t_memory {rf['t_memory']:.4f} s, t_collective "
+        f"{rf['t_collective']:.4f} s, bottleneck {rf['bottleneck']}, "
+        f"peak {rf['peak_memory_per_device']:.4e} B a device, calls run "
+        f"replicated {scaleout['dryrun_cell']['replicated_calls']}")
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
@@ -2478,7 +2916,8 @@ def main() -> None:
                "qwen2-moe-a2.7b": moe["launches"],
                "deepseek-v3-671b-1-layer": deepseek["launches"],
                "whisper-large-v3": whisper["launches"],
-               "qwen3-0.6b-train": train["launches"]}
+               "qwen3-0.6b-train": train["launches"],
+               "qwen3-0.6b-scaleout": scaleout["sharded_step"]["launches"]}
     # These decode paths split every row (S = 4, 33, 2 and 2 on 132 SMs), so
     # each call of D runs its combine pass too.
     for p in ("llama3-8b", "recurrentgemma-9b", "qwen2-moe-a2.7b",
@@ -2496,7 +2935,8 @@ def main() -> None:
                       ("ssd_scan", "ssd_scan.cu")):
         k = kernels[name]
         per_path = {p: c[name] for p, c in by_path.items()
-                    if c.get(name) or p == "qwen3-0.6b-train"}
+                    if c.get(name) or p in ("qwen3-0.6b-train",
+                                            "qwen3-0.6b-scaleout")}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -1,10 +1,10 @@
-"""Architecture registry and assigned input shapes.
-
-The JAX package's ``input_specs`` (dry-run stand-ins) is not ported yet.
-"""
+"""Architecture registry, assigned input shapes and the dry run's input
+stand-ins (meta tensors: a shape and a dtype, no storage)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.models.base import ModelConfig
 
@@ -58,3 +58,43 @@ def runnable(arch: str, shape: str) -> tuple[bool, str]:
         return False, "SKIP(full-attn: O(S) KV for 500k decode is out of " \
                       "scope per assignment; sub-quadratic archs only)"
     return True, ""
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                scale_batch: float = 1.0) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell, with the
+    JAX package's keys, shapes and dtypes.
+
+    ``scale_batch`` lets smoke tests reuse the same code with tiny batches.
+    """
+    from repro_torch.models import serve as serve_mod
+
+    B = max(1, int(shape.global_batch * scale_batch))
+    S = shape.seq_len
+    tok = lambda *sh: _meta(sh, torch.int32)
+
+    extras = {}
+    if cfg.family == "vlm":
+        n_vis = min(qwen2_vl_72b.N_VISION_PATCHES, S // 4)
+        extras["vision_embed"] = _meta((B, n_vis, cfg.d_model), cfg.adtype)
+        if shape.kind != "decode":
+            extras["mrope_positions"] = tok(3, B, S)
+    if cfg.family == "encdec":
+        extras["frames"] = _meta((B, cfg.encoder_seq, cfg.encoder_dim),
+                                 cfg.adtype)
+
+    if shape.kind == "train":
+        return {"tokens": tok(B, S), "labels": tok(B, S), **extras}
+    if shape.kind == "prefill":
+        return {"tokens": tok(B, S), **extras}
+    # decode: one new token against a cache of S positions
+    cache = {k: _meta(sh, dt) for k, (sh, dt) in
+             serve_mod.cache_spec(cfg, B, S + 256).items()}
+    specs = {"tokens": tok(B), "cache": cache}
+    if cfg.family == "vlm":
+        specs["mrope_positions"] = tok(3, B, 1)
+    return specs

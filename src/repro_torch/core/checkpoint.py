@@ -26,7 +26,7 @@ import torch
 
 from .tidestore import DbConfig, KeyspaceConfig, TideDB
 from .tidestore.wal import WalConfig
-from .tree import leaves_with_path, path_str, tree_map, unflatten
+from .tree import leaves, leaves_with_path, path_str, tree_map, unflatten
 
 
 def _key(tag: str, step: int, path: str, part: int = 0) -> bytes:
@@ -79,9 +79,12 @@ class CheckpointManager:
         WAL writes run in a background thread (the paper's
         synchronous/asynchronous split applied to checkpointing)."""
         # A copy even from host tensors: the writer must not see the
-        # caller's later in-place updates.
-        host_state = tree_map(lambda t: t.detach().to("cpu", copy=True),
-                              state)
+        # caller's later in-place updates.  A DTensor is saved whole, as
+        # the reference saves a sharded array's global value.
+        from torch.distributed.tensor import DTensor
+        host_state = tree_map(
+            lambda t: (t.full_tensor() if isinstance(t, DTensor) else t)
+            .detach().to("cpu", copy=True), state)
         if self._async_thread is not None:
             self._async_thread.join()
 
@@ -145,11 +148,15 @@ class CheckpointManager:
                 steps.append(s)
         return steps
 
-    def restore(self, like, step: Optional[int] = None):
+    def restore(self, like, step: Optional[int] = None, shardings=None):
         """Rebuild the tree ``like`` as tensors on the manager's device →
         (state, step), or (None, None) without a checkpoint.  Each leaf
         takes the manifest's dtype and its template's shape, whose element
-        count must be the manifest's (a scalar reads back as a scalar)."""
+        count must be the manifest's (a scalar reads back as a scalar).
+        With ``shardings`` (a tree of ``distributed.sharding.NamedSharding``
+        of ``like``'s structure) each leaf is placed as a DTensor on its
+        mesh and placements: a restart onto another topology.  The stored
+        bytes are the same either way."""
         if self._async_thread is not None:
             self._async_thread.join()
         step = step if step is not None else self.latest_step()
@@ -177,8 +184,17 @@ class CheckpointManager:
                                  f"{tuple(leaf.shape)}")
             return t.reshape(leaf.shape).to(self.device)
 
-        return unflatten(like, [load(p, leaf) for p, leaf in
-                                leaves_with_path(like)]), step
+        state = unflatten(like, [load(p, leaf) for p, leaf in
+                                 leaves_with_path(like)])
+        if shardings is not None:
+            from repro_torch.distributed.sharding import NamedSharding, place
+            state = unflatten(like, [
+                place(t, sh) for t, sh in zip(
+                    leaves(state),
+                    leaves(shardings,
+                           is_leaf=lambda x: isinstance(x, NamedSharding)),
+                    strict=True)])
+        return state, step
 
     def stats(self) -> dict:
         return self.db.stats()

@@ -66,6 +66,18 @@ def init_cache(spec: KVWalSpec, device="cuda") -> dict:
     }
 
 
+def cache_specs(spec: KVWalSpec) -> dict:
+    """Meta-tensor stand-ins of ``init_cache(spec)`` for the dry run (no
+    allocation)."""
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    return {
+        "arena": meta(spec.arena_shape(), getattr(torch, spec.dtype)),
+        "table": meta((spec.batch, spec.n_blocks), torch.int32),
+        "seq_lens": meta((spec.batch,), torch.int32),
+        "first_live": meta((spec.batch,), torch.int32),
+    }
+
+
 def append_token(arena_l: torch.Tensor, table: torch.Tensor,
                  seq_lens: torch.Tensor, entry: torch.Tensor) -> torch.Tensor:
     """Write one new token's entry per sequence into layer-arena ``arena_l``,

@@ -8,29 +8,35 @@ from __future__ import annotations
 from typing import Callable, Iterator
 
 
-def leaves_with_path(tree, path: tuple = ()) -> Iterator[tuple[tuple, object]]:
+def leaves_with_path(tree, path: tuple = (), is_leaf: Callable | None = None
+                     ) -> Iterator[tuple[tuple, object]]:
     """(path, leaf) of every leaf in order; a path holds dict keys and list
-    indices."""
-    if isinstance(tree, dict):
+    indices.  A node for which ``is_leaf`` is true is a leaf (the sharding
+    rules' specs are tuples)."""
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from leaves_with_path(tree[k], path + (k,))
+            yield from leaves_with_path(tree[k], path + (k,), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from leaves_with_path(v, path + (i,))
+            yield from leaves_with_path(v, path + (i,), is_leaf)
     else:
         yield path, tree
 
 
-def leaves(tree) -> list:
-    return [leaf for _, leaf in leaves_with_path(tree)]
+def leaves(tree, is_leaf: Callable | None = None) -> list:
+    return [leaf for _, leaf in leaves_with_path(tree, is_leaf=is_leaf)]
 
 
-def unflatten(like, flat) -> object:
+def unflatten(like, flat, is_leaf: Callable | None = None) -> object:
     """A tree of ``like``'s structure whose leaves are ``flat``, in the
-    order ``leaves(like)`` gives."""
+    order ``leaves(like, is_leaf)`` gives."""
     it = iter(flat)
 
     def build(node):
+        if is_leaf is not None and is_leaf(node):
+            return next(it)
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}

@@ -147,7 +147,9 @@ def check_tensor(t, name: str, dtype, device, n=None, *, shape=None) -> None:
 
 def on_card(t, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if t.device.type in ("cuda", "cpu"):
+    (take the plain version) and for a meta tensor, which holds no data:
+    the dry run traces the plain version's shapes on it.  Any other device
+    raises."""
+    if t.device.type in ("cuda", "cpu", "meta"):
         return t.device.type == "cuda"
     raise ValueError(f"no {what} for tensors on {t.device}")

@@ -6,7 +6,8 @@ queries the kernel left unresolved (budget exhausted).
 launches the kernel (``kernel.py``, which raises on what it cannot take), a
 CPU tensor takes the plain version (``ref.py``).  ``lookup_indices`` resolves
 every query: on the card in one launch of the resolve entry, with no host
-sync, on the CPU through the oracle.  ``lookup_indices_batch`` is the numpy-in / numpy-out
+sync, on the CPU through the oracle; ``lookup_positions`` maps the resolved
+ranks to WAL positions.  ``lookup_indices_batch`` is the numpy-in / numpy-out
 entry of the storage engine's batched read path (``TideDB.multi_get``).
 
 ``lookup_dispatch_count`` counts ``lookup_indices_batch`` dispatches since
@@ -49,6 +50,25 @@ def lookup_indices(queries: torch.Tensor, keys: torch.Tensor, *,
                                          max_iters=max_iters)
     return lookup_indices_ref(queries, keys, window=window,
                               max_iters=max_iters)
+
+
+def lookup_positions(queries: torch.Tensor, keys: torch.Tensor,
+                     positions: torch.Tensor, *, window: int = 512,
+                     max_iters: int = 4):
+    """queries (Q,) uint32; keys (N,) uint32 sorted; positions (N,) — the
+    WAL offsets.  Returns (pos (Q,), found (Q,) bool): the position of the
+    first key equal to each query, 0 where it is absent, through
+    ``lookup_indices`` (the resolve entry on the card, the plain version on
+    the CPU)."""
+    idx, found = lookup_indices(queries, keys, window=window,
+                                max_iters=max_iters)
+    safe = idx.long().clamp(0, keys.shape[0] - 1)
+    # uint32 has no gather or where on the card: select its int32 view.
+    u32 = positions.dtype == torch.uint32
+    pos = positions.view(torch.int32) if u32 else positions
+    out = torch.where(found, pos[safe], torch.zeros((), dtype=pos.dtype,
+                                                    device=pos.device))
+    return (out.view(torch.uint32) if u32 else out), found
 
 
 def lookup_indices_batch(queries: np.ndarray, keys: np.ndarray, *,

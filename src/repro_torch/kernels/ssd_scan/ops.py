@@ -2,8 +2,9 @@
 
 ``ssd`` picks by the tensors' device: CUDA tensors launch the kernel
 (``kernel.py``, which raises on what it cannot take) after padding the
-sequence to a chunk multiple, CPU tensors take the plain version
-(``ref.py``), any other device raises.  The kernel's outputs carry no
+sequence to a chunk multiple, CPU and meta tensors take the plain version
+(``ref.py``; meta tensors are the dry run's shape records), any other
+device raises.  The kernel's outputs carry no
 gradient, so ``ssd`` refuses inputs that require one, on every device (a
 forward that would cut the graph on the card fails on the host too): a
 training forward calls the plain version itself (``models/ssm.py``).

@@ -1,8 +1,9 @@
 """Host-facing entry for tide_attention.
 
 ``decode_attention`` picks by the tensors' device: CUDA tensors launch the
-kernel (``kernel.py``, which raises on what it cannot take), CPU tensors
-take the plain version (``ref.py``), any other device raises.
+kernel (``kernel.py``, which raises on what it cannot take), CPU and meta
+tensors take the plain version (``ref.py``; on meta tensors, the dry run's
+shape records, it computes shapes only), any other device raises.
 """
 from __future__ import annotations
 

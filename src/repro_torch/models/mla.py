@@ -102,6 +102,12 @@ def mla_decode(params, x, cfg, cos, sin, c_cache, rope_cache, kv_len):
     w_uk = wkv_b[..., :m.qk_nope_head_dim]                 # (r,H,nope)
     w_uv = wkv_b[..., m.qk_nope_head_dim:]                 # (r,H,v)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)   # (B,S,H,r)
+    if cfg.decode_q_hd_axis is not None:       # the reference's constraint
+        from repro_torch.distributed.sharding import constrain
+        ba = cfg.act_batch_axes or ("data",)
+        spec = (ba if len(ba) > 1 else ba[0], None, None,
+                cfg.decode_q_hd_axis)
+        q_lat, q_rope = constrain(q_lat, spec), constrain(q_rope, spec)
     s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
          + torch.einsum("bshp,btp->bhst", q_rope.float(),
                         rope_cache.float())) * _scale(cfg)

@@ -11,9 +11,10 @@ expert computes over its C slots whether they hold a token or not, as in
 the JAX package.  Shared experts run densely for every token.
 
 Routing runs in fp32 (the router is an fp32 leaf); the experts' products
-run at the activation dtype.  The JAX package's ``dispatch_axes`` pins a
-TPU mesh layout and has no meaning on one card: it is accepted and
-ignored.
+run at the activation dtype.  ``dispatch_axes = (group_axis, expert_axis)``
+pins the expert-parallel layout of the (G,E,C,d) buffers, as in the JAX
+package: on DTensors they are redistributed to it (``_wsc``), on plain
+tensors nothing changes.
 """
 from __future__ import annotations
 
@@ -88,19 +89,35 @@ def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: MoEConfig):
     return dispatch, gates, probs, aux
 
 
+def _wsc(x, spec):
+    """The reference's sharding constraint: a DTensor is redistributed to
+    ``spec``; a plain tensor is returned as it is."""
+    from repro_torch.distributed.sharding import constrain
+    return constrain(x, tuple(spec))
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
               dispatch_axes=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) → (y (B,S,d), aux_loss scalar fp32)."""
+    """x (B,S,d) → (y (B,S,d), aux_loss scalar fp32).
+
+    ``dispatch_axes = (group_axis, expert_axis)``: groups shard over the
+    data axis, experts over the model axis (the canonical MoE all-to-all)."""
     B, S, d = x.shape
     xg = group_tokens(x, cfg)
     dispatch, gates, _, aux = moe_route(params["router"], xg, cfg)
     dt = x.dtype
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), xg)
+    if dispatch_axes is not None:
+        ga, ea = dispatch_axes
+        expert_in = _wsc(expert_in, (ga, ea, None, None))
     h = F.silu(torch.einsum("gecd,edf->gecf", expert_in,
                             params["we_gate"].to(dt))) \
         * torch.einsum("gecd,edf->gecf", expert_in, params["we_up"].to(dt))
     expert_out = torch.einsum("gecf,efd->gecd", h,
                               params["we_down"].to(dt))        # (G,E,C,d)
+    if dispatch_axes is not None:
+        expert_out = _wsc(expert_out, (dispatch_axes[0], dispatch_axes[1],
+                                       None, None))
     combine = (dispatch * gates[..., None]).to(dt)
     y = torch.einsum("gsec,gecd->gsd", combine, expert_out)
     if "ws_gate" in params:                                    # shared experts

@@ -137,10 +137,24 @@ def _self_attn_decode(cfg: ModelConfig, layer_p, h, arena_k, arena_v, table,
     q, k, v = qkv_proj(p, h, cfg, cos, sin)
     kvwal.append_token(arena_k, table, seq_lens, k[:, 0])
     kvwal.append_token(arena_v, table, seq_lens, v[:, 0])
+    q = _maybe_shard_decode_q(cfg, q)
     o = decode_attention(q[:, 0].contiguous(), arena_k, arena_v, table,
                          seq_lens + 1, first_live, window=window,
                          scale=cfg.hd ** -0.5)
     return o.reshape(h.shape[0], 1, -1) @ p["wo"].to(h.dtype)
+
+
+def _maybe_shard_decode_q(cfg: ModelConfig, q):
+    """The reference's decode-q constraint: shard q's head_dim like the
+    arena, so the q·k contraction needs a small scores sum and not an
+    arena-sized gather.  A DTensor is redistributed to it; a plain tensor
+    is returned as it is."""
+    if cfg.decode_q_hd_axis is None:
+        return q
+    from repro_torch.distributed.sharding import constrain
+    ba = cfg.act_batch_axes or ("data",)
+    return constrain(q, (ba if len(ba) > 1 else ba[0], None, None,
+                         cfg.decode_q_hd_axis))
 
 
 def _griffin_cache(cache: dict, cfg: ModelConfig, gi, i, kind: str):

@@ -182,6 +182,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return p
 
 
+def param_count_exact(cfg: ModelConfig) -> int:
+    """Exact parameter count without allocation: ``init_params`` under
+    ``FakeTensorMode`` (fake tensors carry shapes and no storage), as the
+    JAX package's ``jax.eval_shape``; it works for the 671B config.  Backs
+    MODEL_FLOPS in the roofline."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.tree import leaves
+    with FakeTensorMode():
+        params = init_params(cfg, torch.Generator())
+    return sum(t.numel() for t in leaves(params))
+
+
 # ============================================================= embeddings
 def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return params["embed"][tokens.long()].to(cfg.adtype)
@@ -214,6 +226,21 @@ def with_vision(cfg: ModelConfig, x, vision_embed):
 
 
 # ================================================================ forward
+def maybe_shard_activations(cfg: ModelConfig, x):
+    """The reference's optional sharding constraint on (B,S,d) activations:
+    batch over ``cfg.act_batch_axes``, sequence over ``cfg.act_seq_axis``
+    (Megatron-style sequence parallelism: the remat'd per-layer residual
+    shards over the model axis too).  A DTensor is redistributed to that
+    spec's placements; a plain tensor is returned as it is, as the
+    reference is silently a no-op outside a mesh."""
+    if cfg.act_batch_axes is None and cfg.act_seq_axis is None:
+        return x
+    from repro_torch.distributed.sharding import constrain
+    ba = cfg.act_batch_axes
+    return constrain(x, (ba if ba and len(ba) > 1 else (ba[0] if ba else None),
+                         cfg.act_seq_axis, None))
+
+
 def self_attention(cfg: ModelConfig, attn_p, h, cos, sin):
     """Prefill self-attention of a KV-WAL layer → (output, the entries the
     KV-WAL keeps: rotated (k, v) for GQA, (c_kv, k_rope) for MLA)."""
@@ -232,6 +259,7 @@ def ffn(cfg: ModelConfig, layer_p, h):
 
 
 def _dense_layer_fwd(cfg: ModelConfig, layer_p, x, cos, sin):
+    x = maybe_shard_activations(cfg, x)
     h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
     attn_out, _ = self_attention(cfg, layer_p["attn"], h, cos, sin)
     x = x + attn_out
@@ -270,6 +298,7 @@ def griffin_blocks(params, cfg: ModelConfig):
 
 
 def _encoder_layer(cfg: ModelConfig, layer_p, x):
+    x = maybe_shard_activations(cfg, x)
     h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
     x = x + gqa_block(layer_p["attn"], h, cfg)[0]
     h = rms_norm(layer_p["ln2"], x, cfg.norm_eps)
@@ -306,11 +335,13 @@ def whisper_layer(cfg: ModelConfig, layer_p, x, enc):
 
 def _griffin_group(cfg: ModelConfig, group_p, x, cos, sin):
     for i, kind in enumerate(cfg.griffin.pattern):
-        x = griffin_block(cfg, group_p[f"blk{i}"], x, cos, sin, kind)[0]
+        x = griffin_block(cfg, group_p[f"blk{i}"],
+                          maybe_shard_activations(cfg, x), cos, sin, kind)[0]
     return x
 
 
 def _ssm_layer(cfg: ModelConfig, layer_p, x, differentiable: bool):
+    x = maybe_shard_activations(cfg, x)
     h = rms_norm(layer_p["ln1"], x, cfg.norm_eps)
     return x + ssm_block(layer_p["ssm"], h, cfg,
                          differentiable=differentiable)[0]
@@ -332,7 +363,8 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
         x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
         for layer_p in layers(params["layers"], cfg.n_layers):
             x = _body(cfg, train, lambda p, xc: whisper_layer(
-                cfg, p, xc, enc)[0], layer_p, x)
+                cfg, p, maybe_shard_activations(cfg, xc), enc)[0],
+                layer_p, x)
     elif cfg.family == "ssm":
         for layer_p in layers(params["layers"], cfg.n_layers):
             x = _body(cfg, train, _ssm_layer, cfg, layer_p, x, train)
@@ -346,7 +378,8 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
                 x = _body(cfg, train, _griffin_group, cfg, group_p, x, cos,
                           sin)
             for ti, blk in enumerate(params["tail"]):
-                x = griffin_block(cfg, blk, x, cos, sin,
+                x = griffin_block(cfg, blk, maybe_shard_activations(cfg, x),
+                                  cos, sin,
                                   pattern[ti % len(pattern)])[0]
         else:
             for layer_p in layers(params["layers"], cfg.n_layers):
@@ -379,23 +412,32 @@ def _xent(logits, labels, cfg) -> torch.Tensor:
     return -ll.mean()
 
 
+def _roll_left(x) -> torch.Tensor:
+    """``torch.roll(x, -1, dims=1)`` as a slice and a concatenation, the
+    same values through ops DTensor shards in every torch the port runs on
+    (it has no rule for ``roll`` in some)."""
+    return torch.cat([x[:, 1:], x[:, :1]], dim=1)
+
+
 def _mtp_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """DeepSeek-style multi-token prediction: predict t+2 from a fused
     representation of (hidden_t, embed(token_{t+1})) through one extra
     layer; the hidden state is the embedding, as in the JAX package."""
     tokens, labels = batch["tokens"], batch["labels"]
     B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
-    nxt = torch.roll(x, -1, dims=1)
+    x = maybe_shard_activations(cfg, embed_tokens(params, cfg, tokens))
+    nxt = _roll_left(x)
     h = torch.cat([x, nxt], dim=-1) @ params["mtp"]["proj"].to(x.dtype)
+    h = maybe_shard_activations(cfg, h)
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     cos, sin = _angles(cfg, pos)
     lp = params["mtp"]["layer"]
     out, _ = self_attention(cfg, lp["attn"],
                             rms_norm(lp["ln1"], h, cfg.norm_eps), cos, sin)
-    h = h + out
+    h = maybe_shard_activations(cfg, h + out)
     h = h + mlp_block(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
                       cfg.act)
-    h = rms_norm(params["mtp"]["ln"], h, cfg.norm_eps)
-    return _xent(lm_logits(params, cfg, h), torch.roll(labels, -1, dims=1),
+    h = rms_norm(params["mtp"]["ln"], maybe_shard_activations(cfg, h),
+                 cfg.norm_eps)
+    return _xent(lm_logits(params, cfg, h), _roll_left(labels),
                  cfg)

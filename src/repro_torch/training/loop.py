@@ -6,8 +6,9 @@ The JAX package's ``training/loop.py`` on PyTorch.
 the WAL's batch atomicity guarantees a manifest is either fully visible or
 absent) resumes from the last durable step.  The train state lives on
 ``device`` (the card by default); checkpoint values are raw leaf bytes, so
-either package resumes the other's run.  The JAX package's ``shardings``
-(a restart onto another mesh) are ROADMAP A.13's.
+either package resumes the other's run.  ``shardings`` places the restored
+state on a mesh (a restart onto another topology,
+``CheckpointManager.restore``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class LoopConfig:
 
 def run(cfg: ModelConfig, opt: AdamWConfig, loop: LoopConfig,
         batch_fn: Callable[[int], dict], ckpt_dir: str,
-        step_fn: Optional[Callable] = None,
+        step_fn: Optional[Callable] = None, shardings=None,
         log_fn: Callable[[str], None] = print,
         device: str = "cuda") -> dict:
     """Train with auto-resume.  ``batch_fn(step)`` gives the step's batch
@@ -48,7 +49,7 @@ def run(cfg: ModelConfig, opt: AdamWConfig, loop: LoopConfig,
     params, opt_state = init_train_state(cfg, opt, gen)
     state = {"params": params, "opt": opt_state}
 
-    restored, step0 = ckpt.restore(state)
+    restored, step0 = ckpt.restore(state, shardings=shardings)
     if restored is not None:
         state = restored
         start_step = step0 + 1

@@ -4,15 +4,15 @@
 ``make_train_step`` runs the forward through ``train_loss``, the backward
 with ``torch.autograd.grad`` over every parameter leaf (a leaf the loss
 does not reach gets a zero gradient, as under ``jax.value_and_grad``), then
-the AdamW update.  The JAX package's ``abstract_train_state`` (shapes
-without allocation, for the dry run and the sharding tests) is ROADMAP
-A.13's.
+the AdamW update.  ``abstract_train_state`` gives the train state's shapes
+without allocation (the JAX package's ``jax.eval_shape``) as meta tensors,
+which carry a shape and a dtype and no storage.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tree import leaves, unflatten
+from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.models import serve as serve_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ModelConfig
@@ -24,7 +24,8 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                     compress_grads=None):
     """Returns train_step(params, opt_state, batch) → (params, opt_state,
     metrics).  ``compress_grads`` optionally transforms the gradient tree
-    (the JAX package's int8 compressor is ROADMAP A.13's)."""
+    (e.g. int8 quantize → all-reduce → dequantize,
+    ``distributed/compression.py``)."""
 
     def train_step(params, opt_state, batch):
         flat = [p.detach().requires_grad_() for p in leaves(params)]
@@ -61,3 +62,14 @@ def init_train_state(cfg: ModelConfig, opt: AdamWConfig,
     """(params, opt_state) on the generator's device."""
     params = T.init_params(cfg, gen)
     return params, adamw_init(params, opt)
+
+
+def abstract_train_state(cfg: ModelConfig, opt: AdamWConfig):
+    """(params, opt_state) as meta tensors, built under ``FakeTensorMode``
+    (no allocation, also for the 671B config)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = T.init_params(cfg, torch.Generator())
+        opt_state = adamw_init(params, opt)
+    meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+    return tree_map(meta, params), tree_map(meta, opt_state)

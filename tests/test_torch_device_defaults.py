@@ -68,3 +68,27 @@ def test_training_defaults_need_a_card(tmp_path, monkeypatch):
             LoopConfig(total_steps=1), lambda step: {}, str(tmp_path / "run"))
     assert not any(tmp_path.iterdir())
     CheckpointManager(str(tmp_path / "cpu"), device="cpu").close()
+
+
+def test_host_mesh_needs_a_card(monkeypatch):
+    """``make_host_mesh`` builds on the card unless ``device="cpu"`` is
+    passed; without a card it refuses before touching a process group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert inspect.signature(make_host_mesh).parameters["device"].default \
+        == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="live process group"):
+        make_host_mesh(device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_host_mesh()
+        mesh = make_host_mesh(device="cpu")
+        assert mesh.device_type == "cpu" and tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
+    finally:
+        dist.destroy_process_group()

@@ -41,7 +41,10 @@ def test_imports_neither_jax_nor_repro():
                 "core.tidestore.simulate", "serving.admission",
                 "serving.kv_server", "training.optimizer", "training.step",
                 "training.loop", "training.straggler", "core.checkpoint",
-                "core.tree", "data.pipeline", "launch.train"):
+                "core.tree", "data.pipeline", "launch.train",
+                "distributed.sharding", "distributed.compression",
+                "distributed.pipeline", "launch.mesh", "launch.dryrun",
+                "roofline.hw", "roofline.op_cost", "roofline.analysis"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"

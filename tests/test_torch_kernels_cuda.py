@@ -262,6 +262,24 @@ def test_lookup_entries_on_card(card, kind, window, max_iters):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,window,max_iters", LOOKUP_CASES)
+def test_lookup_positions_on_card(card, kind, window, max_iters):
+    """``lookup_positions`` on the card launches the resolve entry once and
+    equals the plain version's positions on the CPU."""
+    keys, queries = _lookup_case(kind, 13)
+    pos = (np.arange(len(keys), dtype=np.uint32) * 40 + 7).astype(np.uint32)
+    kw = dict(window=window, max_iters=max_iters)
+    before = lookup_kernel.launches["optimistic_lookup_resolve"]
+    got = lookup_ops.lookup_positions(_t(queries).to(card), _t(keys).to(card),
+                                      _t(pos).to(card), **kw)
+    torch.cuda.synchronize()
+    assert lookup_kernel.launches["optimistic_lookup_resolve"] == before + 1
+    want = lookup_ops.lookup_positions(_t(queries), _t(keys), _t(pos), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
 def test_lookup_indices_does_not_sync_on_card(card):
     """On CUDA tensors ``lookup_indices`` is one launch of the resolve
     entry: no host sync (which the sync debug mode turns into an error),
