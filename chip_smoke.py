@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port of Tidehunter: the storage path, the
-sharded storage server, KV-WAL decode serving of Llama-3-8B and
+sharded storage server, the engine comparison against the LSM baselines
+(the paper's RocksDB and BlobDB stand-ins), KV-WAL decode serving of
+Llama-3-8B and
 Qwen2-MoE-A2.7B, Mamba-2 serving, RecurrentGemma decode through the
 KV-WAL's window and pruning, DeepSeek-V3's MLA over the latent arena,
 whisper's encoder-decoder, Qwen3-0.6B training with its checkpoints in
@@ -48,7 +50,15 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    what was written.  Then a second, warm read pass runs under
    torch.profiler (device time of each kernel and copy, and the kernels the
    wrappers counted; no cub select or reduce kernel may run in
-   ``multi_exists``) and a third under cProfile (host time).
+   ``multi_exists``) and a third under cProfile (host time).  Last, the
+   routing sweep (``routing_sweep``): at batch sizes 8 to 8192 it captures
+   what the engine hands the Bloom probe and the lookup, runs both routes
+   on it 21 times each in alternating order (the answers must agree), and
+   prints each route's median and interquartile range and the size from
+   which the kernel route wins (its median below the host's by more than
+   both ranges, there and at every larger size): the evidence for the
+   card's routing thresholds (``bloom.kernel_min_batch``,
+   ``large_table.kernel_min_queries``).
 4. The serving path: ``ServingEngine`` over full-width Llama-3-8B with
    random weights from a seeded generator, 8 slots of 2048 positions, 16
    greedy requests of 16-1024 prompt tokens and 32 new tokens each.  Every
@@ -82,10 +92,14 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    execution, with its ops/s and the p50/p99 of each request's time from
    submit to done; flush, close, then ``multi_exists`` on 32768 keys and
    ``multi_get`` on 8192, each route after its own reopen: the default
-   (the host path on a multi-shard store) and ``use_kernel=True``, where
-   the 4 shard threads launch the Bloom probe and the lookup at once, one
-   of each a touched shard for ``multi_exists`` and one lookup a shard for
-   ``multi_get`` (the script fails on any other count).  Then one flipped
+   (``shard.multi_shard_kernel``: the host path on a multi-shard store)
+   and ``use_kernel=True``, where the 4 shard threads launch the Bloom
+   probe at once, one a touched shard for ``multi_exists``, and the lookup
+   on each shard whose batch reaches ``large_table.kernel_min_queries``
+   (the script fails on any other count).  Then both routes named explicitly,
+   alternated 15 times each on the warm store with the value caches
+   dropped before each call, every answer checked: the evidence for the
+   multi-shard default route.  Then one flipped
    value byte in a key's primary copy: the server's get must fail over to
    the replica, and ``repair()`` must restore the copy and clear the
    quarantine.
@@ -144,8 +158,20 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    the roofline of phase 12's train step and of the serving phase's
    Llama-3-8B decode step, beside their measured times (MFU, multiple of
    the bound); (f) the dry run's qwen3-0.6b x train_4k cell on a fake
-   process group of 256 ranks, in a subprocess, status ``ok`` and no op
-   run replicated but those ``dryrun.REPLICABLE`` names.
+   process group of 256 ranks and mamba2-1.3b's SMOKE train cell on a
+   fake (2, 2) mesh (its SSD's cumsums flip in the backward, for which
+   this torch's DTensor may lack a rule: the dry run then registers its
+   own), each in a subprocess, status ``ok``, no op run replicated but
+   those ``dryrun.REPLICABLE`` names, each with the bytes it gathered.
+14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
+   3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
+   ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
+   leveled and key-value separated) each take 2^18 uniform 32-byte keys
+   with 1 KiB values (cut from phase 3's 2^20 for the script's time):
+   put ops/s (``put_many`` in batches of 4096 against scalar ``put``),
+   flush, write amplification, then 8192 gets and 32768 existence checks
+   (half absent) with the value caches dropped, batched against scalar;
+   every answer checked.
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -154,6 +180,7 @@ launches on every path; the last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import os
@@ -182,6 +209,10 @@ N_SHARDS = 4                   # the reference's sharded engine
 REPLICATION = 2                # its self-healing benchmark's setting
 SERVER_BATCH = 4096
 MIXED_REQUESTS = 65536
+SWEEP_SIZES = [8 << i for i in range(11)]     # 8 .. 8192 queries a batch
+SWEEP_SAMPLES = 21             # a route and size, in alternating order
+ROUTE_PAIRS = 15               # phase 8's alternations of the two routes
+ENGINE_KEYS = 1 << 18          # phase 14: cut from phase 3's 2^20
 
 
 def fail(msg: str) -> None:
@@ -2176,16 +2207,35 @@ def _roofline_line(name, cfg, cost, n_tokens, kind, ms, peak) -> dict:
                 over_bound=ms / bound_ms)
 
 
-def dryrun_cell_subprocess(arch: str = "qwen3-0.6b",
-                           shape: str = "train_4k") -> dict:
+def dryrun_cell_subprocess(arch: str = "qwen3-0.6b", shape: str = "train_4k",
+                           smoke: bool = False) -> dict:
     """``lower_cell(arch, shape, multi_pod=False)`` on the fake 256-rank
     group, in a process of its own (the fake group replaces the live one,
-    and this process's NCCL group must stay)."""
+    and this process's NCCL group must stay).  With ``smoke``, the SMOKE
+    config's cell of kind ``shape`` (4 x 64 tokens) on a fake (2, 2) mesh
+    of 4 ranks, as the CPU tests run it; its record says whether the dry
+    run registered its own ``flip`` rule (``flip_rule_registered``)."""
+    if smoke:
+        cell = ("from torch.distributed.device_mesh import "
+                "init_device_mesh\n"
+                "from repro_torch.configs.registry import ShapeSpec\n"
+                "from repro_torch.launch import dryrun\n"
+                "from repro_torch.launch.mesh import "
+                "init_fake_process_group\n"
+                "init_fake_process_group(4)\n"
+                "mesh = init_device_mesh('cpu', (2, 2), "
+                "mesh_dim_names=('data', 'model'))\n"
+                "registered = dryrun._ensure_flip_rule()\n"
+                f"e = dryrun.lower_cell({arch!r}, ShapeSpec("
+                f"{shape + '_smoke'!r}, 64, 4, {shape!r}), False, "
+                "mesh=mesh, smoke=True)\n"
+                "e['flip_rule_registered'] = registered\n")
+    else:
+        cell = ("from repro_torch.launch.dryrun import lower_cell\n"
+                f"e = lower_cell({arch!r}, {shape!r}, multi_pod=False)\n")
     code = ("import json, logging\n"
             "logging.getLogger('torch.distributed.tensor')"
-            ".setLevel(logging.ERROR)\n"
-            "from repro_torch.launch.dryrun import lower_cell\n"
-            f"e = lower_cell({arch!r}, {shape!r}, multi_pod=False)\n"
+            ".setLevel(logging.ERROR)\n" + cell +
             "print('DRYRUN ' + json.dumps(e))\n")
     env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
     t0 = time.perf_counter()
@@ -2375,17 +2425,23 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         bound_ms=max(lplain.flops / BF16_OPS_PER_S,
                      lplain.bytes / HBM_BYTES_PER_S) * 1e3)
 
-    # (f) the dry-run cell on the fake 256-rank group
-    cell = dryrun_cell_subprocess()
-    if cell.get("status") != "ok":
-        fail(f"dry-run cell: {cell.get('status')}")
-    if not set(cell["replicated_calls"]) <= REPLICABLE:
-        fail(f"dry-run cell ran ops replicated outside the named ones: "
-             f"{cell['replicated_calls']}")
-    res["dryrun_cell"] = {k: cell[k] for k in ("arch", "shape", "mesh",
-                                               "status", "cost_s", "trace_s",
-                                               "memory", "replicated_calls",
-                                               "roofline", "subprocess_s")}
+    # (f) the dry-run cell on the fake 256-rank group, and mamba2-1.3b's
+    # SMOKE train cell on a fake (2, 2) mesh (its cumsum's backward flips)
+    for key, cell in (("dryrun_cell", dryrun_cell_subprocess()),
+                      ("dryrun_mamba2_smoke", dryrun_cell_subprocess(
+                          "mamba2-1.3b", "train", smoke=True))):
+        if cell.get("status") != "ok":
+            fail(f"dry-run cell {key}: {cell.get('status')}")
+        if not set(cell["replicated_calls"]) <= REPLICABLE:
+            fail(f"dry-run cell {key} ran ops replicated outside the named "
+                 f"ones: {cell['replicated_calls']}")
+        if set(cell["replicated_calls"]) != set(cell["replicated_bytes"]):
+            fail(f"dry-run cell {key}: a replicated op without its bytes")
+        res[key] = {k: cell[k] for k in (
+            "arch", "shape", "mesh", "status", "cost_s", "trace_s", "memory",
+            "replicated_calls", "replicated_bytes", "roofline",
+            "subprocess_s") + (("flip_rule_registered",)
+                               if "flip_rule_registered" in cell else ())}
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -2448,8 +2504,128 @@ def main_path(n_keys: int, seed: int, workdir: str,
         kernel_lookups=db.stats()["batched_kernel_lookups"])
     if device == "cuda":
         res["profile"] = profile_reads(db, probe, gkeys)
+    res["routing"] = routing_sweep(db, present, absent, gkeys, device)
     db.close()
     return res
+
+
+def _stats_ms(samples) -> dict:
+    """Median and interquartile range of a route's samples (seconds), in
+    ms, with the samples."""
+    a = np.asarray(samples) * 1e3
+    q1, med, q3 = np.percentile(a, [25, 50, 75])
+    return {"median_ms": float(med), "iqr_ms": float(q3 - q1),
+            "n": len(a), "samples_ms": [round(float(x), 4) for x in a]}
+
+
+def _kernel_wins(host: dict, kernel: dict) -> bool:
+    """The kernel route's median below the host route's by more than both
+    routes' interquartile ranges."""
+    return host["median_ms"] - kernel["median_ms"] > max(host["iqr_ms"],
+                                                          kernel["iqr_ms"])
+
+
+def _alternate(routes: dict, n: int) -> dict:
+    """``n`` host-clock samples of each callable in ``routes``, the order
+    reversed every other round → seconds by route."""
+    names, out = list(routes), {name: [] for name in routes}
+    for i in range(n):
+        for name in names if i % 2 == 0 else names[::-1]:
+            t0 = time.perf_counter()
+            routes[name]()
+            out[name].append(time.perf_counter() - t0)
+    return out
+
+
+def routing_sweep(db, present, absent, gkeys, device: str) -> dict:
+    """Phase 3's routing sweep over the warm reopened store (ROADMAP A.4).
+    For each batch size of ``SWEEP_SIZES`` it captures what the engine
+    routes: the lookup's inputs from ``multi_get``, and the fused Bloom
+    probe's from ``multi_exists`` (half the keys absent; the parsed index
+    blobs dropped first, as a memoized cell skips the probe), each call
+    taken at the host route with the value cache cleared.  It then runs
+    both routes on those inputs, ``SWEEP_SAMPLES`` times each in
+    alternating order (host clock; the kernel route includes its copies
+    and its wait), and fails if they answer differently.  The kernel route
+    wins from the smallest size at which it wins (``_kernel_wins``) and at
+    every larger size, in the unit the engine routes by: queries a touched
+    cell for the Bloom probe (``bloom.kernel_min_batch``), disk-resolved
+    queries for the lookup (``large_table.kernel_min_queries``)."""
+    from repro_torch.core.tidestore import ReadOptions, bloom, large_table
+    from repro_torch.kernels.bloom_check.ops import probe_cells_batch
+    from repro_torch.kernels.optimistic_lookup.ops import \
+        lookup_indices_batch
+    host_opts = ReadOptions(use_kernel=False, fill_cache=False)
+    window = db.cfg.keyspaces[0].window_entries
+
+    def capture(module, name, call):
+        seen, real = [], getattr(module, name)
+
+        def record(*args):
+            seen.append(args)
+            return real(*args)
+        setattr(module, name, record)
+        try:
+            call()
+        finally:
+            setattr(module, name, real)
+        return seen
+
+    def bloom_routes(calls):
+        host = lambda: [bloom._probe_host(*a) for a in calls]
+        kern = lambda: [probe_cells_batch(*a[:5], k=a[5], device=device)
+                        for a in calls]
+        if not all(np.array_equal(h, k) for h, k in zip(host(), kern())):
+            fail("the Bloom probe's routes answer differently")
+        return {"host": host, "kernel": kern}
+
+    def lookup_routes(calls):
+        host = lambda: [large_table._lookup_host(*a) for a in calls]
+        kern = lambda: [lookup_indices_batch(*a, window=window,
+                                             device=device) for a in calls]
+        for (q32, u32), (hi, hf), (ki, kf) in zip(calls, host(), kern()):
+            last = len(u32) - 1
+            if not np.array_equal(hf, kf) or not np.array_equal(
+                    u32[np.minimum(hi, last)][hf],
+                    u32[np.minimum(ki.astype(np.int64), last)][kf]):
+                fail("the lookup's routes answer differently")
+        return {"host": host, "kernel": kern}
+
+    out = {"sizes": SWEEP_SIZES, "samples": SWEEP_SAMPLES,
+           "bloom": {}, "lookup": {}}
+    for b in SWEEP_SIZES:
+        keys = present[:b // 2] + absent[:b - b // 2]
+        db.cache.clear()
+        lookups = capture(large_table, "_lookup_host", lambda: db.multi_get(
+            gkeys[:b], keyspace="kv", opts=host_opts))
+        # A cell whose parsed index blob is memoized skips the Bloom probe.
+        db.cache.clear()
+        db.table.blob_cache.clear()
+        probes = capture(bloom, "_probe_host", lambda: db.multi_exists(
+            keys, keyspace="kv", opts=host_opts))
+        for what, calls in (("bloom", probes), ("lookup", lookups)):
+            routed = sum(len(a[0]) for a in calls)
+            if not routed:           # no call reached the routing choice
+                continue
+            row = {"calls": len(calls), "queries": routed}
+            if what == "bloom":
+                row["cells"] = sum(len(np.unique(a[2])) for a in calls)
+                row["per_cell"] = routed / row["cells"]
+            t = _alternate((bloom_routes if what == "bloom"
+                            else lookup_routes)(calls), SWEEP_SAMPLES)
+            out[what][b] = {**row, "host": _stats_ms(t["host"]),
+                            "kernel": _stats_ms(t["kernel"])}
+    for what, unit in (("bloom", "per_cell"), ("lookup", "queries")):
+        at = None
+        for b in reversed(sorted(out[what])):
+            row = out[what][b]
+            if not _kernel_wins(row["host"], row["kernel"]):
+                break
+            at = row[unit]
+        # In the unit the engine routes by: queries a touched cell for the
+        # Bloom probe, disk-resolved queries a batch for the lookup.
+        out[f"{what}_kernel_wins_from"] = at
+    return out
 
 
 def _dispatches() -> dict:
@@ -2498,6 +2674,8 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
     from repro_torch.core.tidestore import (DbConfig, KeyspaceConfig,
                                             ReadOptions, ShardedTideDB,
                                             read_repair_table)
+    from repro_torch.core.tidestore.large_table import kernel_min_queries
+    from repro_torch.core.tidestore.shard import multi_shard_kernel
     from repro_torch.core.tidestore.wal import HEADER_SIZE, _ENTRY_HDR
     from repro_torch.serving.kv_server import KvBatchServer
     rep = 1024 // 32                   # value = key x 32: 1 KiB, checkable
@@ -2605,15 +2783,30 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
                                for k, v in _dispatches().items()}}
         runs[route].append(calls)
     touched = len({sdb.shard_of(k) for k in probe})
-    touched_get = len({sdb.shard_of(k) for k in gkeys})
-    # With use_kernel=True each touched shard launches B and C once for
-    # multi_exists; multi_get launches C once a shard and no B: 2048 gets a
-    # shard over 64 cells is 32 a cell, under bloom.py's 64.
-    want = {"default": {"multi_exists": {}, "multi_get": {}},
-            "use_kernel": {
-                "multi_exists": {"bloom_check_ragged": touched,
-                                 "optimistic_lookup_resolve": touched},
-                "multi_get": {"optimistic_lookup_resolve": touched_get}}}
+    lookup_min = kernel_min_queries(device)
+
+    def lookups(keys_):
+        """Shards whose batch reaches the lookup's threshold: each of them
+        launches C once (a touched cell's keys all resolve from its blob
+        at these sizes; ``multi_exists`` adds a few Bloom false positives
+        to its present keys, far from the threshold here)."""
+        per_shard = collections.Counter(sdb.shard_of(k) for k in keys_)
+        return sum(n >= lookup_min for n in per_shard.values())
+
+    # With use_kernel=True each touched shard launches B once for
+    # multi_exists (8192 probes over its 64 cells, 128 a cell, over
+    # bloom.py's 64) and multi_get launches no B (2048 gets a shard is 32 a
+    # cell); C launches on each shard whose batch reaches the lookup's
+    # threshold.
+    kernel_calls = {name: {k: v for k, v in calls.items() if v} for name,
+                    calls in (("multi_exists", {
+                        "bloom_check_ragged": touched,
+                        "optimistic_lookup_resolve": lookups(present)}),
+                        ("multi_get", {
+                            "optimistic_lookup_resolve": lookups(gkeys)}))}
+    want = {"default": kernel_calls if multi_shard_kernel(device) else
+            {"multi_exists": {}, "multi_get": {}},
+            "use_kernel": kernel_calls}
     for route, calls_list in runs.items():
         for calls in calls_list:
             for name, c in calls.items():
@@ -2630,6 +2823,43 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
         "launches": calls_list[0][name]["launches"]}
         for name in ("multi_exists", "multi_get")}
         for route, calls_list in runs.items()}
+    res["default_route"] = "kernel" if multi_shard_kernel(device) else "host"
+
+    # The multi-shard default route (ROADMAP A.4): both routes named
+    # explicitly, alternated ROUTE_PAIRS times on the warm store, each call
+    # after the value caches are dropped; every answer checked.
+    def timed_call(name, kernel):
+        opts = ReadOptions(use_kernel=kernel)
+        keys, want_ = ((probe, [True] * len(present) + [False] * len(absent))
+                       if name == "multi_exists" else (gkeys, want_get))
+        sdb.clear_caches()
+        t0 = time.perf_counter()
+        got = getattr(sdb, name)(keys, keyspace="kv", opts=opts)
+        sync()
+        dt = time.perf_counter() - t0
+        if got != want_:
+            fail(f"sharded {name} (use_kernel={kernel}) differs from what "
+                 f"was written")
+        return dt
+
+    alt = {}
+    for name in ("multi_exists", "multi_get"):
+        t = {"host": [], "kernel": []}
+        for i in range(ROUTE_PAIRS):
+            for route in ("host", "kernel")[::1 if i % 2 == 0 else -1]:
+                t[route].append(timed_call(name, route == "kernel"))
+        alt[name] = {route: _stats_ms(v) for route, v in t.items()}
+        alt[name]["kernel_wins"] = _kernel_wins(alt[name]["host"],
+                                                alt[name]["kernel"])
+        alt[name]["host_wins"] = _kernel_wins(alt[name]["kernel"],
+                                              alt[name]["host"])
+    # The kernel route becomes the default where it wins one call and
+    # loses neither.
+    alt["kernel_route_wins"] = \
+        any(alt[n]["kernel_wins"] for n in ("multi_exists", "multi_get")) \
+        and not any(alt[n]["host_wins"] for n in ("multi_exists",
+                                                  "multi_get"))
+    res["route_alternation"] = alt
 
     # Failover and repair: one flipped value byte in a key's primary copy.
     key = gkeys[0]
@@ -2665,6 +2895,99 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
                value_wal_bytes=sum(sh.value_wal.tail for sh in sdb.shards))
     res["launches"] = read_launches()
     sdb.close()
+    return res
+
+
+def engines_phase(n_keys: int, seed: int, workdir: str,
+                  device: str = "cuda") -> dict:
+    """Phase 14: the paper's engine comparison.  The port's ``TideDB``
+    (phase 3's config, ``multi_get`` and ``multi_exists`` launching C and
+    B on the card) and the LSM baseline as ``rocksdb(sim)`` and
+    ``blobdb(sim)`` (memtables of 512 entries, leveled and key-value
+    separated), each in a fresh directory, take the same ``n_keys``
+    uniform 32-byte keys with 1 KiB values: ``put_many`` in batches of
+    4096 for ``TideDB`` and scalar ``put`` for the baselines, then
+    ``flush``; the value caches are dropped; then 8192 gets of present
+    keys and 32768 existence checks, half of them absent (``multi_get`` /
+    ``multi_exists`` for ``TideDB``, scalar calls for the baselines).
+    Every answer is checked; write amplification is the engine's
+    ``bytes_written_disk / bytes_written_app``."""
+    import torch
+    from repro_torch.core.lsm_baseline import LsmBaseline, LsmConfig
+    from repro_torch.core.tidestore import DbConfig, KeyspaceConfig, TideDB
+    rep = 1024 // 32                   # value = key x 32: 1 KiB, checkable
+    tag = b"tidehunter-engines-%d:" % seed
+    keys = make_keys(n_keys, tag)
+    absent = make_keys(EXISTS_KEYS // 2, tag + b"absent")
+    rng = np.random.default_rng(seed)
+    gkeys = [keys[i] for i in rng.choice(n_keys, GET_KEYS, replace=False)]
+    present = [keys[i] for i in rng.choice(n_keys, EXISTS_KEYS // 2,
+                                           replace=False)]
+    probe = present + absent
+    want_exists = [True] * len(present) + [False] * len(absent)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    engines = {
+        "tidehunter": lambda d: TideDB(d, DbConfig(
+            keyspaces=[KeyspaceConfig("kv", n_cells=256)], device=device)),
+        "rocksdb(sim)": lambda d: LsmBaseline(
+            d, LsmConfig(memtable_entries=512)),
+        "blobdb(sim)": lambda d: LsmBaseline(
+            d, LsmConfig(memtable_entries=512, blob_mode=True))}
+    res = {"keys": n_keys, "value_bytes": 32 * rep, "gets": len(gkeys),
+           "exists": len(probe),
+           "reduced": f"keys {n_keys} (phase 3: 2^20)"}
+    reset_launches()
+    for name, make in engines.items():
+        d = os.path.join(workdir, re.sub(r"\W", "", name))
+        db = make(d)
+        tide = isinstance(db, TideDB)
+        t0 = time.perf_counter()
+        if tide:
+            for i in range(0, n_keys, BATCH):
+                db.put_many([(k, k * rep) for k in keys[i:i + BATCH]],
+                            keyspace="kv")
+        else:
+            for k in keys:
+                db.put(k, k * rep)
+        t1 = time.perf_counter()
+        db.flush()
+        t2 = time.perf_counter()
+        st = db.stats()
+        if tide:
+            db.cache.clear()
+        t3 = time.perf_counter()
+        vals = (db.multi_get(gkeys, keyspace="kv") if tide
+                else [db.get(k) for k in gkeys])
+        sync()
+        t4 = time.perf_counter()
+        got = (db.multi_exists(probe, keyspace="kv") if tide
+               else [db.exists(k) for k in probe])
+        sync()
+        t5 = time.perf_counter()
+        wrong_get = sum(v != k * rep for v, k in zip(vals, gkeys))
+        wrong_exists = sum(g != w for g, w in zip(got, want_exists))
+        if wrong_get or wrong_exists:
+            fail(f"{name}: {wrong_get} gets and {wrong_exists} existence "
+                 f"checks differ from what was written")
+        res[name] = {
+            "put_s": t1 - t0, "put_ops_s": n_keys / (t1 - t0),
+            "flush_s": t2 - t1,
+            "write_amp": st["bytes_written_disk"] / st["bytes_written_app"],
+            "bytes_written_app": st["bytes_written_app"],
+            "bytes_written_disk": st["bytes_written_disk"],
+            "get_s": t4 - t3, "get_ops_s": len(gkeys) / (t4 - t3),
+            "exists_s": t5 - t4, "exists_ops_s": len(probe) / (t5 - t4)}
+        if not tide:
+            res[name]["levels"] = [sum(r.count for r in lv)
+                                   for lv in db.levels]
+        db.close()
+        shutil.rmtree(d, ignore_errors=True)
+    res["launches"] = read_launches()
+    tide = res["tidehunter"]
+    for name in ("rocksdb(sim)", "blobdb(sim)"):
+        res[f"tidehunter_over_{name}"] = {
+            m: tide[m] / res[name][m]
+            for m in ("put_ops_s", "get_ops_s", "exists_ops_s")}
     return res
 
 
@@ -2774,6 +3097,17 @@ def main() -> None:
     for name in ("bloom_check_ragged", "optimistic_lookup_resolve"):
         if path["launches"][name] < 1:
             fail(f"the main path never launched {name}")
+    rt = path["routing"]
+    for what, unit in (("bloom", "queries a touched cell"),
+                       ("lookup", "disk-resolved queries")):
+        say(f"routing sweep [{card}]: {what}, median (IQR) ms host / kernel "
+            f"by batch size (queries routed): " + ", ".join(
+                f"{b} ({r['queries']}): {r['host']['median_ms']:.4f} "
+                f"({r['host']['iqr_ms']:.4f}) / "
+                f"{r['kernel']['median_ms']:.4f} "
+                f"({r['kernel']['iqr_ms']:.4f})"
+                for b, r in sorted(rt[what].items())) +
+            f"; kernel wins from {rt[f'{what}_kernel_wins_from']} {unit}")
 
     workdir = tempfile.mkdtemp(prefix="tidedb-sharded-", dir=ROOT / "build")
     try:
@@ -2796,6 +3130,34 @@ def main() -> None:
         f"{sharded['flush_close_s']:.1f} s; ops/s default / use_kernel: "
         f"multi_exists {both('multi_exists')}, multi_get "
         f"{both('multi_get')}")
+
+    al = sharded["route_alternation"]
+    say(f"sharded server [{card}]: routes alternated {ROUTE_PAIRS} times "
+        f"on the warm store, median (IQR) ms host / kernel: " + "; ".join(
+            f"{n} {al[n]['host']['median_ms']:.2f} "
+            f"({al[n]['host']['iqr_ms']:.2f}) / "
+            f"{al[n]['kernel']['median_ms']:.2f} "
+            f"({al[n]['kernel']['iqr_ms']:.2f})"
+            for n in ("multi_exists", "multi_get")) +
+        f"; kernel route wins: {al['kernel_route_wins']}; default route "
+        f"{sharded['default_route']}")
+
+    workdir = tempfile.mkdtemp(prefix="engines-", dir=ROOT / "build")
+    try:
+        engines = engines_phase(min(args.keys, ENGINE_KEYS), args.seed,
+                                workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say(f"engine comparison [{card}]: {json.dumps(engines)}")
+    say(f"engine comparison [{card}]: {engines['keys']} keys x 1 KiB; " +
+        "; ".join(f"{n} put {engines[n]['put_ops_s']:.0f} ops/s, write amp "
+                  f"{engines[n]['write_amp']:.3f}, get "
+                  f"{engines[n]['get_ops_s']:.0f} ops/s, exists "
+                  f"{engines[n]['exists_ops_s']:.0f} ops/s"
+                  for n in ("tidehunter", "rocksdb(sim)", "blobdb(sim)")))
+    for name in ("bloom_check_ragged", "optimistic_lookup_resolve"):
+        if engines["launches"][name] < 1:
+            fail(f"the engine comparison's TideDB never launched {name}")
 
     served = serve_phase(args.seed)
     say(f"serving path [{card}]: {json.dumps(served)}")
@@ -2902,13 +3264,21 @@ def main() -> None:
         f"({rf['chips']} fake ranks): t_compute {rf['t_compute']:.4f} s, "
         f"t_memory {rf['t_memory']:.4f} s, t_collective "
         f"{rf['t_collective']:.4f} s, bottleneck {rf['bottleneck']}, "
-        f"peak {rf['peak_memory_per_device']:.4e} B a device, calls run "
-        f"replicated {scaleout['dryrun_cell']['replicated_calls']}")
+        f"peak {rf['peak_memory_per_device']:.4e} B a device, "
+        f"collectives {rf['collective_bytes']:.4e} B, calls run "
+        f"replicated {scaleout['dryrun_cell']['replicated_calls']} "
+        f"gathering {scaleout['dryrun_cell']['replicated_bytes']} B")
+    m2 = scaleout["dryrun_mamba2_smoke"]
+    say(f"dry-run cell: {m2['arch']} SMOKE x {m2['shape']} x {m2['mesh']}: "
+        f"{m2['status']}, flip rule registered by the dry run "
+        f"{m2['flip_rule_registered']}, calls run replicated "
+        f"{m2['replicated_calls']}")
     if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
 
     by_path = {"storage": path["launches"],
                "sharded-server": sharded["launches"],
+               "engine-comparison": engines["launches"],
                "llama3-8b": served["launches"],
                "mamba2-1.3b": mamba["launches"],
                "recurrentgemma-9b": griffin["launches"],

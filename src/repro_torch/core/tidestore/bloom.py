@@ -22,11 +22,20 @@ import struct
 
 import numpy as np
 
-# Below this many queries the kernel's launch and copy overhead dominates;
-# the numpy path computes the identical answer in a few microseconds.  The
-# value is the JAX package's, kept for parity until it is retuned from
-# measurements on the card.
-_KERNEL_MIN_BATCH = 64
+# Below this many queries a touched cell, on average, the kernel's launch
+# and copies cost more than the numpy path, which computes the identical
+# answer.  On the CPU the JAX package's value, so that the counters equal
+# the reference's.  On the card ``chip_smoke.py``'s phase-3 sweep found the
+# numpy path faster up to 16 queries a cell and the two unresolved at 32
+# (its largest size): no size qualified, so the JAX package's value stays
+# there too (PERF.md §6).
+_KERNEL_MIN_BATCH = {"cpu": 64, "cuda": 64}
+
+
+def kernel_min_batch(device: str) -> int:
+    """The fused probe's routing threshold on ``device`` ("cuda:0" → its
+    type's), in queries a touched cell."""
+    return _KERNEL_MIN_BATCH[device.split(":")[0]]
 
 
 def key_hashes(key: bytes) -> tuple[int, int]:
@@ -169,17 +178,17 @@ def probe_cells(cells, h1: np.ndarray, h2: np.ndarray, groups,
     Every (query, cell) pair resolves in ONE kernel launch on ``device``
     (the plain PyTorch version when ``device`` is the CPU): the touched
     bitsets pack back to back, each query carries its cell's word offset
-    and true modulus.  Below ``_KERNEL_MIN_BATCH`` total queries (or with
-    ``use_kernel=False``) the identical answer comes from one vectorized
-    numpy pass — still fused, never per-cell.  Unassigned queries come back
+    and true modulus.  Below the routing threshold (``kernel_min_batch``;
+    or with ``use_kernel=False``) the identical answer comes from one
+    vectorized numpy pass — still fused, never per-cell.  Unassigned queries come back
     ``False``.  Bit-for-bit equal to ``cells[i].might_contain(key)`` per
     query: the probe arithmetic never changes, only the batching.
 
     Kernel routing: one fused launch costs about what ONE per-cell launch
     did, so the kernel engages once every touched cell carries at least the
     single-cell threshold of queries on average (``total ≥
-    _KERNEL_MIN_BATCH × n_cells``).  With one cell this reduces exactly to
-    the small-batch threshold.
+    kernel_min_batch(device) × n_cells``).  With one cell this reduces
+    exactly to the small-batch threshold.
 
     Cells with distinct ``k`` fuse per k-group (one launch each); every
     engine-built filter shares one k, so the batch path stays one launch.
@@ -211,7 +220,7 @@ def probe_cells(cells, h1: np.ndarray, h2: np.ndarray, groups,
                  for i, (_, g) in enumerate(members)])
             nb = np.concatenate([np.full(g.size, c.nbits, np.uint32)
                                  for c, g in members])
-        if use_kernel and sel.size >= _KERNEL_MIN_BATCH * len(members):
+        if use_kernel and sel.size >= kernel_min_batch(device) * len(members):
             from ...kernels.bloom_check.ops import probe_cells_batch
             out[sel] = probe_cells_batch(h1[sel], h2[sel], off, nb, bits, k=k,
                                          device=device)

@@ -28,10 +28,26 @@ from .index import (FORMATS, blob_to_arrays, entry_size, is_tombstone,
 from .util import Metrics
 
 # Below this many disk-resolved queries per batch, the lookup kernel's launch
-# and copy overhead exceeds the host searchsorted it replaces.  The value is
-# the JAX package's, kept for parity until it is retuned from measurements
-# on the card.
-_KERNEL_MIN_QUERIES = 128
+# and copies cost more than the host searchsorted it replaces.  On the CPU
+# the JAX package's value, so that the counters equal the reference's.  On
+# the card the value ``chip_smoke.py``'s phase-3 sweep measured over 2^20
+# keys: the host route won below 2048 queries, 4096 was unresolved, and
+# the kernel route won at 8192 (PERF.md §6).
+_KERNEL_MIN_QUERIES = {"cpu": 128, "cuda": 8192}
+
+
+def kernel_min_queries(device: str) -> int:
+    """The lookup kernel's routing threshold on ``device`` ("cuda:0" → its
+    type's)."""
+    return _KERNEL_MIN_QUERIES[device.split(":")[0]]
+
+
+def _lookup_host(q32: np.ndarray, u32: np.ndarray):
+    """The host route of the batched lookup: each query's lower bound in
+    the sorted ``u32`` → (idx, found), as the kernel's resolve entry."""
+    idx = np.searchsorted(u32, q32, side="left").astype(np.int64)
+    safe = np.minimum(idx, len(u32) - 1)
+    return idx, (idx < len(u32)) & (u32[safe] == q32)
 
 
 class CellState(Enum):
@@ -688,16 +704,14 @@ class LargeTable:
         q32 = np.frombuffer(
             b"".join(k[:4].ljust(4, b"\x00") for k in queries),
             dtype=">u4").astype(np.uint32)
-        if use_kernel and len(queries) >= _KERNEL_MIN_QUERIES:
+        if use_kernel and len(queries) >= kernel_min_queries(self.device):
             from ...kernels.optimistic_lookup.ops import lookup_indices_batch
             idx, found = lookup_indices_batch(q32, u32,
                                               window=ks.cfg.window_entries,
                                               device=self.device)
             self.metrics.add(batched_kernel_lookups=len(queries))
         else:
-            idx = np.searchsorted(u32, q32, side="left").astype(np.int64)
-            safe = np.minimum(idx, total - 1)
-            found = (idx < total) & (u32[safe] == q32)
+            idx, found = _lookup_host(q32, u32)
         self.metrics.add(index_lookups=len(queries))
         # Vectorized full-key verification: in the common case (no u32
         # prefix collision) the landing index either IS the query key or

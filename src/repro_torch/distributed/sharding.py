@@ -344,3 +344,46 @@ def constrain(x, spec: tuple):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+# ---------------------------------------------------- vocab-parallel loss
+# XLA partitions the reference's log-softmax over vocab-sharded logits with
+# per-token all-reduces.  DTensor picks each op's placements by the bytes
+# its inputs move, not by the bytes its output holds: left alone, the head
+# product comes out pending a sum over the whole vocabulary.  These hooks
+# steer the head and the loss (``models/transformer.py``); like
+# ``constrain``, each returns a plain tensor as it is.
+def _to(t, want):
+    if tuple(t.placements) == tuple(want):
+        return t
+    return t.redistribute(t.device_mesh, tuple(want))
+
+
+def vocab_parallel_input(x, w, vocab_dim: int):
+    """The head's input ``x`` whole on each mesh dim that splits the head
+    weight ``w`` along its vocab dim, so that the logits come out split
+    there; its other mesh dims keep their placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    vdim = vocab_dim % w.dim()
+    return _to(x, [Replicate() if isinstance(pw, Shard) and pw.dim == vdim
+                   else px for px, pw in zip(x.placements, w.placements)])
+
+
+def complete(t):
+    """``t`` with its pending reductions done: each ``Partial`` mesh dim
+    all-reduced to ``Replicate``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    return _to(t, [Replicate() if p.is_partial() else p
+                   for p in t.placements])
+
+
+def follow(t, ref):
+    """``t`` placed as ``ref``, a tensor of the same shape, is placed."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(t, DTensor) and isinstance(ref, DTensor)):
+        return t
+    return _to(t, ref.placements)

@@ -24,9 +24,11 @@ the production ``DeviceMesh`` over it.  Each cell then:
    ``ShardedTrace``, which reads the collectives DTensor issues (count and
    result bytes by kind) and the local bytes that ops allocate.  Where
    DTensor cannot shard an op, a view or an index named in ``REPLICABLE``
-   runs again on replicated inputs (the record counts those ops:
-   ``replicated_calls``), an in-place cache write runs on the local
-   shards, and any other op fails the cell.
+   runs again on inputs replicated over as few mesh dims as it needs (the
+   record counts those ops, ``replicated_calls``, and the bytes they
+   gathered, ``replicated_bytes``), an in-place cache write runs on the
+   local shards, and any other op fails the cell.  A torch whose DTensor
+   has no rule for ``aten.flip`` gets the dry run's (``_flip_strategy``).
 
 Peak memory per device is the local shard bytes of the step's arguments
 plus the high-water mark of the bytes allocated and not yet freed during
@@ -98,7 +100,8 @@ def _step_and_args(cfg, shape: ShapeSpec, opt, params, opt_state, specs):
 
 
 # Ops DTensor may fail to shard (which of them, differs between torch
-# versions), rerun on replicated inputs: a view or reshape that splits or
+# versions), rerun on inputs replicated over as few mesh dims as DTensor
+# needs to shard them: a view or reshape that splits or
 # merges a sharded dim (a head dim over the model axis), and an index
 # whose index tensor is sharded twice on one dim (the embedding's gather
 # and its backward).  Any other op DTensor cannot shard fails the cell.
@@ -109,9 +112,12 @@ LOCAL_WRITES = frozenset({"copy_", "index_put_"})
 
 class _DTensorGaps(TorchDispatchMode):
     """Where DTensor cannot shard an op of the step (forward or backward):
-    an op named in ``REPLICABLE`` runs again on the whole inputs on every
-    device, its outputs replicated (the gathers that costs are counted, and
-    ``replicated`` counts the ops by name); a write named in
+    an op named in ``REPLICABLE`` runs again with its inputs replicated over
+    the innermost mesh dims, one more at a time until DTensor shards it
+    (on every mesh dim: each device computes the whole op, its outputs
+    replicated).  The gathers that costs are counted; ``replicated``
+    counts the ops by name, ``replicated_bytes`` the bytes a device holds
+    of the inputs they gathered.  A write named in
     ``LOCAL_WRITES`` (the KV-WAL's appends and prefill writes, a recurrent
     state or cross K/V into its cache slot) runs on the local shards.
     Any other op fails.  Entered after ``ShardedTrace``, so that it sees
@@ -120,6 +126,7 @@ class _DTensorGaps(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.replicated: dict = {}
+        self.replicated_bytes: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
@@ -142,11 +149,34 @@ class _DTensorGaps(TorchDispatchMode):
             return _write_local(func, args, kwargs)
         flat = leaves([list(args), kwargs])
         mesh = next(t.device_mesh for t in flat if isinstance(t, DTensor))
-        whole = [Replicate()] * mesh.ndim
-        local = [t.redistribute(mesh, whole).to_local().contiguous()
-                 if isinstance(t, DTensor) else t for t in flat]
-        a, kw = unflatten([list(args), kwargs], local)
         self.replicated[name] = self.replicated.get(name, 0) + 1
+        # Replicate the innermost mesh dims first (the model axis, which
+        # splits heads), one more at a time, and let DTensor run the op
+        # again; only on every mesh dim replicated does each device compute
+        # the whole op itself.
+        for n in range(1, mesh.ndim + 1):
+            keep = mesh.ndim - n
+            moved = [t.redistribute(mesh, tuple(t.placements[:keep])
+                                    + (Replicate(),) * n)
+                     if isinstance(t, DTensor) and not all(
+                         p.is_replicate() for p in t.placements[keep:])
+                     else t for t in flat]
+            self.replicated_bytes[name] = \
+                self.replicated_bytes.get(name, 0) + sum(
+                    m.to_local().numel() * m.element_size()
+                    for t, m in zip(flat, moved) if m is not t)
+            a, kw = unflatten([list(args), kwargs], moved)
+            if keep == 0:
+                break
+            try:
+                return func(*a, **kw)
+            except (RuntimeError, ValueError, NotImplementedError,
+                    AssertionError):
+                flat = moved
+        whole = [Replicate()] * mesh.ndim
+        a, kw = unflatten([list(args), kwargs], [
+            t.to_local().contiguous() if isinstance(t, DTensor) else t
+            for t in leaves([a, kw])])
         out = func(*a, **kw)          # every device computes the whole op
         return unflatten(out, [DTensor.from_local(o, mesh, whole,
                                                   run_check=False)
@@ -207,16 +237,59 @@ def _write_local(func, args, kwargs):
     return dst
 
 
+def _flip_strategy(op_schema):
+    """DTensor strategy for ``aten.flip``, for a torch whose propagator has
+    none (the backward of ``torch.cumsum`` flips: the plain SSD's scans).
+    Each input placement is kept, but a ``Shard`` of a flipped dim, which
+    is replicated first: a flip moves rows between shards."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import (
+        generate_redistribute_costs, normalize_dim)
+    inp = op_schema.args_schema[0]
+    dims = {normalize_dim(d, inp.ndim) for d in op_schema.args_schema[1]}
+    out = OpStrategy([])
+    for strategy in inp.strategies:
+        spec = strategy.output_spec
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim in dims
+                     else p for p in spec.placements)
+        src = DTensorSpec(spec.mesh, want, tensor_meta=spec.tensor_meta)
+        out.strategies.append(OpSpec(
+            output_specs=DTensorSpec(spec.mesh, want),
+            input_specs=(src,),
+            redistribute_cost=[generate_redistribute_costs(inp, src)]))
+    return out
+
+
+def _ensure_flip_rule() -> bool:
+    """Register ``_flip_strategy`` if the running torch's DTensor has no
+    rule for ``aten.flip`` (2.13 has one; 2.11 has none) → whether it
+    registered it."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    prop = DTensor._op_dispatcher.sharding_propagator
+    flip = torch.ops.aten.flip.default
+    if any(flip in getattr(prop, table, {}) for table in (
+            "op_strategy_funcs", "op_single_dim_strategy_funcs",
+            "op_to_rules")):
+        return False
+    prop.register_op_strategy(flip, _flip_strategy, RuntimeSchemaInfo(1))
+    return True
+
+
 def _sharded_run(step, args):
     """Run ``step`` on DTensor arguments under ``ShardedTrace``; plain
     tensors the step makes itself count as replicated → (the trace, the
-    ops run again on replicated inputs)."""
+    ops run again on replicated inputs by name: their count, and the bytes
+    a device holds of the inputs they gathered)."""
     from torch.distributed.tensor.experimental import implicit_replication
+    _ensure_flip_rule()
     trace, gaps = roofline.ShardedTrace(), _DTensorGaps()
     with implicit_replication(), trace, gaps:
         out = step(*args)
     del out
-    return trace, gaps.replicated
+    return trace, gaps.replicated, gaps.replicated_bytes
 
 
 def lower_cell(arch: str, shape_name, multi_pod: bool,
@@ -263,7 +336,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
     _, d_args = _step_and_args(cfg, shape, opt, d_params, d_opt, d_inputs)
     arg_bytes = sum(t.to_local().numel() * t.element_size()
                     for t in leaves(d_args))
-    trace, replicated = _sharded_run(step, d_args)
+    trace, replicated, replicated_bytes = _sharded_run(step, d_args)
     t_trace = time.time() - t0
     coll = trace.stats
 
@@ -287,6 +360,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
         "memory": {"argument_bytes": arg_bytes,
                    "peak_live_bytes": trace.peak_live_bytes},
         "replicated_calls": replicated,
+        "replicated_bytes": replicated_bytes,
         "global_cost": {"flops": cost.flops, "bytes": cost.bytes},
         "roofline": rf.to_dict(),
     }

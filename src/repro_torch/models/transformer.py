@@ -200,9 +200,12 @@ def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
 
 
 def lm_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
+    from repro_torch.distributed.sharding import vocab_parallel_input
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        w = params["embed"]
+        return vocab_parallel_input(x, w, 0) @ w.to(x.dtype).T
+    w = params["lm_head"]
+    return vocab_parallel_input(x, w, 1) @ w.to(x.dtype)
 
 
 def _angles(cfg: ModelConfig, positions, mrope_positions=None):
@@ -407,9 +410,33 @@ def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def _xent(logits, labels, cfg) -> torch.Tensor:
+    """Mean of ``-log_softmax(logits)[label]`` in fp32: the reference's ops.
+    Logits split or pending a sum over a mesh (a DTensor not replicated on
+    every mesh dim) take ``_xent_vocab_parallel``, which computes the same
+    values in another order."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(logits, DTensor) and not all(
+            p.is_replicate() for p in logits.placements):
+        return _xent_vocab_parallel(logits, labels)
     lp = torch.log_softmax(logits.float(), dim=-1)
     ll = lp.gather(-1, labels.long()[..., None])[..., 0]
     return -ll.mean()
+
+
+def _xent_vocab_parallel(logits, labels) -> torch.Tensor:
+    """``_xent`` as reductions over the vocab dim and elementwise ops, which
+    DTensor shards over logits split along their vocab dim: each device
+    reduces its slice, and only per-token scalars are all-reduced, as XLA
+    partitions the reference's log-softmax.  The label's log-probability
+    is picked by a mask over the vocab ids: a gather's gradient would be
+    replicated whole on every device."""
+    from repro_torch.distributed.sharding import complete, follow
+    x = complete(logits.float())
+    z = x - x.detach().amax(-1, keepdim=True)
+    lse = complete(z.exp().sum(-1)).log()
+    ids = torch.arange(z.shape[-1], device=z.device)
+    hit = follow(labels[..., None].expand(z.shape), z) == ids
+    return (lse - complete(torch.where(hit, z, 0.0).sum(-1))).mean()
 
 
 def _roll_left(x) -> torch.Tensor:

@@ -23,6 +23,7 @@ import weakref
 from dataclasses import asdict, dataclass, field
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import hw
@@ -66,7 +67,9 @@ class ShardedTrace(TorchDispatchMode):
     collective's result bytes by kind (``stats``), and the high-water mark
     of the bytes of local tensors that ops allocate while it is on
     (``peak_live_bytes``): an output that aliases no input is counted from
-    its op until the tensor is freed."""
+    its op until the tensor is freed.  The fake tensors of the whole global
+    shape that DTensor's sharding propagation runs each op on, to learn its
+    output's shape, are no device's bytes and are not counted."""
 
     def __init__(self):
         super().__init__()
@@ -91,7 +94,8 @@ class ShardedTrace(TorchDispatchMode):
         fresh = [r.alias_info is None for r in func._schema.returns]
         outs = out if isinstance(out, (list, tuple)) else (out,)
         for o, new in zip(outs, fresh):
-            if new and isinstance(o, torch.Tensor):
+            if new and isinstance(o, torch.Tensor) and \
+                    not isinstance(o, FakeTensor):
                 n = _nbytes(o)
                 self.live_bytes += n
                 weakref.finalize(o, self._free, n)

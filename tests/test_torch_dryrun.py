@@ -2,9 +2,15 @@
 and decode cell traced on a (2, 2) ("data", "model") mesh in ``tp`` mode,
 its FLOPs per device times the chips equal to ``op_cost``'s global count;
 one production cell (qwen3-0.6b, train_4k, 16 x 16) against the JAX
-package's FLOPs; and the sharding hooks on DTensors and plain tensors."""
+package's FLOPs and its peak bytes a device; the dry run's ``flip`` rule
+against this torch's own; and the sharding hooks on DTensors and plain
+tensors."""
 import dataclasses
+import json
 import logging
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -16,6 +22,7 @@ from repro.roofline.jaxpr_cost import jaxpr_cost
 from repro.training import step as jax_step
 from repro.training.optimizer import AdamWConfig as JaxAdamWConfig
 from repro_torch.configs.registry import ShapeSpec, get_config, input_specs
+from repro_torch.core.tree import leaves
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import init_fake_process_group
@@ -148,14 +155,27 @@ def test_maybe_shard_decode_q(mesh):
 
 def test_a_call_dtensor_cannot_shard_runs_replicated(mesh):
     """A view that splits a sharded dim its shard count does not divide
-    (6 over 2 ranks into 3 x 2) runs again on replicated inputs: counted,
-    and its gathers recorded."""
+    (6 over 2 ranks into 3 x 2) runs again with that dim gathered over the
+    model axis, its batch dim still split over "data": counted, and its
+    gathers recorded (a device's (4, 6) fp32 rows)."""
     x = _dt(mesh, (8, 6), ("data", "model"))
-    trace, replicated = dryrun._sharded_run(lambda a: a.view(8, 3, 2) * 2,
-                                            [x])
-    assert replicated == {"view": 1}
+    trace, replicated, gathered = dryrun._sharded_run(
+        lambda a: a.view(8, 3, 2) * 2, [x])
+    assert replicated == {"view": 1} and gathered == {"view": 4 * 6 * 4}
     assert trace.stats.count_by_kind["all-gather"] >= 1
-    assert trace.peak_live_bytes >= 8 * 6 * 4
+    assert trace.peak_live_bytes >= 4 * 6 * 4
+
+
+def test_a_call_no_partial_replication_shards_runs_whole(mesh):
+    """A dim split over both mesh axes (12 over 4 ranks) viewed as 3 x 4:
+    gathering the model axis leaves it split 2 ways, which 3 does not
+    divide, so every device runs the whole view; both gathers count."""
+    x = _dt(mesh, (8, 12), (None, ("data", "model")))
+    trace, replicated, gathered = dryrun._sharded_run(
+        lambda a: a.view(8, 3, 4) * 2, [x])
+    assert replicated == {"view": 1}
+    assert gathered == {"view": 8 * 6 * 4 + 8 * 12 * 4}
+    assert trace.stats.count_by_kind["all-gather"] >= 2
 
 
 def test_an_op_dtensor_cannot_shard_fails_the_trace(mesh):
@@ -177,12 +197,12 @@ def test_cache_writes_run_on_local_shards(mesh):
     entry = _dt(mesh, (4, 2, 16), ("data", "model"))
     table = torch.zeros(4, 3, dtype=torch.int32, device="meta")
     lens = torch.zeros(4, dtype=torch.int32, device="meta")
-    trace, replicated = dryrun._sharded_run(
+    trace, replicated, _ = dryrun._sharded_run(
         lambda a, e: kvwal.append_token(a, table, lens, e), [arena, entry])
     assert replicated == {} and trace.stats.total_bytes == 0
     assert tuple(arena.to_local().shape) == (2, 3, 8, 1, 16)
     plain = torch.empty(4, 2, 16, device="meta")
-    trace, _ = dryrun._sharded_run(lambda e: plain.copy_(e), [entry])
+    trace, _, _ = dryrun._sharded_run(lambda e: plain.copy_(e), [entry])
     assert trace.stats.count_by_kind["all-gather"] >= 1
     with pytest.raises(NotImplementedError):       # a block dim sharded
         dryrun._write_local(
@@ -191,7 +211,101 @@ def test_cache_writes_run_on_local_shards(mesh):
              [torch.zeros(4, dtype=torch.long, device="meta")] * 3,
              torch.empty(4, 2, 16, device="meta")), {})
 
-# Last: it replaces the fake group of the fixture by one of 256 ranks.
+# ------------------------------------------------------------ flip rule
+# The SSD's flips (the backward of its cumsums): the shapes and placements
+# the mamba2-1.3b SMOKE train cell gives them on the (2, 2) mesh, and the
+# dims they flip.
+_SSD_FLIPS = [((4, 8, 8, 8), (-1,)), ((4, 8, 8, 8), (2,)),
+              ((4, 8, 8, 8), (-1, 2))]
+_FLIP_PLACEMENTS = [("S0", "S0"), ("S0", "R"), ("R", "S0"), ("R", "R"),
+                    ("S0", "S1"), ("P", "S0")]
+
+
+def _placement(tag):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return {"R": Replicate(), "P": Partial()}.get(tag) or Shard(int(tag[1:]))
+
+
+def _flip_schema(mesh, shape, dims, tags, strategy: bool):
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
+                                                     OpStrategy)
+    meta = TensorMeta(torch.Size(shape), torch.empty(shape).stride(),
+                      torch.float32)
+    spec = DTensorSpec(mesh, tuple(_placement(t) for t in tags),
+                       tensor_meta=meta)
+    arg = OpStrategy([OpSpec(spec)]) if strategy else spec
+    return OpSchema(torch.ops.aten.flip.default, (arg, list(dims)), {})
+
+
+@pytest.mark.parametrize("tags", _FLIP_PLACEMENTS)
+@pytest.mark.parametrize("shape,dims", _SSD_FLIPS)
+def test_flip_rule_gives_the_native_rules_placements(mesh, shape, dims,
+                                                      tags):
+    """The dry run's ``flip`` strategy, called directly, places the output
+    as this torch's own rule does for the SSD's flips (their flipped dims
+    are never split), keeping each input placement."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ours = dryrun._flip_strategy(_flip_schema(mesh, shape, dims, tags, True))
+    (choice,) = ours.strategies
+    native = prop.propagate_op_sharding(
+        _flip_schema(mesh, shape, dims, tags, False))
+    assert tuple(choice.output_spec.placements) == \
+        tuple(native.output_spec.placements)
+    assert tuple(choice.input_specs[0].placements) == \
+        tuple(_placement(t) for t in tags)
+
+
+def test_flip_rule_replicates_a_flipped_split_dim(mesh):
+    """Along a flipped dim that is split, the rule gathers it first."""
+    from torch.distributed.tensor import Replicate, Shard
+    ours = dryrun._flip_strategy(_flip_schema(mesh, (4, 8, 8, 8), (2,),
+                                              ("S0", "S2"), True))
+    (choice,) = ours.strategies
+    assert tuple(choice.output_spec.placements) == (Shard(0), Replicate())
+    assert choice.redistribute_cost[0][0] > 0
+
+
+def test_mamba2_cell_runs_on_the_dry_runs_flip_rule(mesh, monkeypatch):
+    """As on a torch whose DTensor has no ``flip`` rule: with this torch's
+    own rule taken out, the dry run registers its rule, and mamba2-1.3b's
+    SMOKE train cell (its cumsums' backward flips) traces ``ok`` through
+    it, with no op run replicated."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    flip = torch.ops.aten.flip.default
+    calls = []
+    real = dryrun._flip_strategy
+    monkeypatch.setattr(dryrun, "_flip_strategy",
+                        lambda s: calls.append(s) or real(s))
+    def clear_caches():                # Python's and the C++ fast path's
+        prop.propagate_op_sharding.cache.cache_clear()
+        getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                lambda: None)()
+
+    saved = {t: getattr(prop, t).pop(flip) for t in (
+        "op_single_dim_strategy_funcs", "op_strategy_funcs",
+        "op_to_rules", "op_to_schema_info",
+        "op_to_schema_info_for_single_dim_strategy")
+        if flip in getattr(prop, t, {})}
+    clear_caches()
+    try:
+        assert dryrun._ensure_flip_rule() and not dryrun._ensure_flip_rule()
+        entry = dryrun.lower_cell("mamba2-1.3b",
+                                  ShapeSpec("train_smoke", 64, 4, "train"),
+                                  False, mesh=mesh, smoke=True)
+    finally:
+        for t in ("op_strategy_funcs", "op_to_schema_info"):
+            getattr(prop, t).pop(flip, None)
+        for t, v in saved.items():
+            getattr(prop, t)[flip] = v
+        clear_caches()
+    assert calls
+    assert entry["status"] == "ok" and entry["replicated_calls"] == {}
+
+
+# Last: they replace the fake group of the fixture by one of 256 ranks.
 def test_production_cell_equals_the_reference_flops():
     """qwen3-0.6b × train_4k on the fake 16 x 16 mesh of 256 ranks: ok, and
     its global FLOPs (remat on) equal ``jaxpr_cost``'s of the JAX step."""
@@ -211,3 +325,50 @@ def test_production_cell_equals_the_reference_flops():
     assert rf["flops_per_device"] * 256 == want.flops
     assert rf["model_flops"] == 6 * 596_049_920 * 4096 * 256
     assert rf["collective_bytes"] > 0
+
+
+def test_production_cell_peak_near_the_reference(monkeypatch):
+    """qwen3-0.6b × train_4k on the fake 16 x 16 mesh: its peak bytes a
+    device within 4x of the JAX package's ``lower_cell`` for the same cell
+    (XLA's buffer assignment; run in a process of its own, which the
+    reference's forced 512 host devices need), where the log-softmax over
+    the whole vocabulary had held 102x; and no collective moves logits or
+    their gradient: the only collective result that holds the whole vocab
+    dim is the embedding table, gathered for the lookup."""
+    import torch.distributed as dist
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.analysis import _KINDS
+    shapes = []
+
+    class Recording(analysis.ShardedTrace):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented and func.namespace in (
+                    "_c10d_functional", "c10d_functional") and \
+                    func._overloadpacket.__name__ in _KINDS:
+                shapes.extend(tuple(o.shape) for o in leaves([out]))
+            return out
+
+    monkeypatch.setattr(dryrun.roofline, "ShardedTrace", Recording)
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    try:
+        entry = dryrun.lower_cell("qwen3-0.6b", "train_4k", False)
+    finally:
+        dist.destroy_process_group()
+    code = ("import json\n"
+            "from repro.launch.dryrun import lower_cell\n"
+            "e = lower_cell('qwen3-0.6b', 'train_4k', False)\n"
+            "print('REF ' + json.dumps(e['roofline']))\n")
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": src,
+                              "JAX_PLATFORMS": "cpu"})
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("REF ")]
+    assert res.returncode == 0 and lines, res.stderr[-2000:]
+    want = json.loads(lines[-1][4:])["peak_memory_per_device"]
+    got = entry["roofline"]["peak_memory_per_device"]
+    assert want / 4 <= got <= 4 * want, (got, want)
+    vocab, d_model = 151936, 1024
+    assert shapes and all(s == (vocab, d_model) for s in shapes
+                          if vocab in s), [s for s in shapes if vocab in s]

@@ -44,7 +44,8 @@ def test_imports_neither_jax_nor_repro():
                 "core.tree", "data.pipeline", "launch.train",
                 "distributed.sharding", "distributed.compression",
                 "distributed.pipeline", "launch.mesh", "launch.dryrun",
-                "roofline.hw", "roofline.op_cost", "roofline.analysis"):
+                "roofline.hw", "roofline.op_cost", "roofline.analysis",
+                "core.lsm_baseline"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
@@ -69,6 +70,21 @@ def test_kv_server_needs_neither_torch_nor_the_model_stack():
         "from repro_torch.core.tidestore import ShardedTideDB\n"
         "bad = sorted(m for m in sys.modules if m == 'torch' or "
         "m.startswith('repro_torch.models'))\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_lsm_baseline_is_host_only():
+    """The RocksDB and BlobDB stand-ins load neither PyTorch nor a kernel:
+    the host engine's Bloom filter and counters only."""
+    code = (
+        "import sys\n"
+        "from repro_torch.core.lsm_baseline import LsmBaseline, LsmConfig\n"
+        "bad = sorted(m for m in sys.modules if m == 'torch' or "
+        "m.startswith('repro_torch.kernels'))\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,

@@ -10,7 +10,9 @@ A store of 4 shards with 2 replicas of each key (2^16 keys) serves batched
 reads on both routes: the default, which a multi-shard store takes on the
 host, and ``use_kernel=True``, where the shard threads launch the Bloom
 probe (B) and the lookup's resolve entry (C) at once.  Both routes must
-give what was written, and B and C must each launch once a touched shard.
+give what was written, and B and C must each launch once a touched shard:
+each shard's batch is sized over the card's lookup threshold
+(``large_table.kernel_min_queries("cuda")``).
 The engine's reads end in a device-to-host copy of the answers, a sync by
 design, so ``torch.cuda.set_sync_debug_mode`` cannot wrap them; the lookup
 entry alone runs under it in ``test_torch_kernels_cuda.py``.
@@ -23,12 +25,18 @@ import torch
 
 from repro_torch.core.tidestore import (DbConfig, KeyspaceConfig,
                                         ReadOptions, ShardedTideDB)
+from repro_torch.core.tidestore.large_table import kernel_min_queries
 from repro_torch.kernels.bloom_check import kernel as bloom_kernel
 from repro_torch.kernels.optimistic_lookup import kernel as lookup_kernel
 from repro_torch.serving.kv_server import KvBatchServer
 
 N_KEYS = 1 << 16
-PROBES = 32768                 # 8192 a shard over its 64 cells: B engages
+# A shard's share of the present probes and of the gets (a quarter, within
+# a few hundred) reaches the card's lookup threshold with room to spare:
+# C engages on every shard; its probes are 5x that over 64 cells, over the
+# Bloom probe's 64 a cell: B engages.
+LOOKUPS = 5 * kernel_min_queries("cuda")
+PROBES = 2 * LOOKUPS
 
 
 def _keys(n, tag):
@@ -73,7 +81,7 @@ def test_kernel_route_equals_default_and_written(store):
     present = [keys[i] for i in rng.choice(N_KEYS, PROBES // 2,
                                            replace=False)]
     probe = present + absent
-    gets = [keys[i] for i in rng.choice(N_KEYS, 8192, replace=False)]
+    gets = [keys[i] for i in rng.choice(N_KEYS, LOOKUPS, replace=False)]
     want_exists = [True] * len(present) + [False] * len(absent)
     want_get = [written[k] for k in gets]
     for opts in (None, ReadOptions(use_kernel=True)):
@@ -89,8 +97,8 @@ def test_kernel_route_equals_default_and_written(store):
         assert touched == 4
         assert (b1 - b0, c1 - c0) == ((touched, touched) if kernel
                                       else (0, 0))
-        # 2048 gets a shard over 64 cells is 32 a cell: under the Bloom
-        # probe's 64, so multi_get launches the lookup alone.
+        # multi_exists memoized every cell's index blob, and a memoized
+        # cell skips the Bloom probe: multi_get launches the lookup alone.
         assert (b2 - b1, c2 - c1) == ((0, touched) if kernel else (0, 0))
 
 
