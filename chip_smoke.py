@@ -51,7 +51,7 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    torch.profiler (device time of each kernel and copy, and the kernels the
    wrappers counted; no cub select or reduce kernel may run in
    ``multi_exists``) and a third under cProfile (host time).  Last, the
-   routing sweep (``routing_sweep``): at batch sizes 8 to 8192 it captures
+   routing sweep (``routing_sweep``): at batch sizes 8 to 32768 it captures
    what the engine hands the Bloom probe and the lookup, runs both routes
    on it 21 times each in alternating order (the answers must agree), and
    prints each route's median and interquartile range and the size from
@@ -85,24 +85,26 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    positions, window 16): the same path, its decode step held against the
    plain version at 2e-4.
 8. The sharded storage server (run right after phase 3): ``KvBatchServer``
-   over ``ShardedTideDB(n_shards=4, replication=2)`` with the same N keys
-   and values: every key put through the server in batches of 4096, a
+   over ``ShardedTideDB(n_shards=4, replication=2)`` with N/2 keys of the
+   same kind (each shard's 64 cells then as full as phase 3's 256): every
+   key put through the server in batches of 4096, a
    seeded stream of 65536 requests (50% get, 25% exists, half of them on
    absent keys, 20% overwriting put, 5% delete) checked against scalar
    execution, with its ops/s and the p50/p99 of each request's time from
-   submit to done; flush, close, then ``multi_exists`` on 32768 keys and
-   ``multi_get`` on 8192, each route after its own reopen: the default
-   (``shard.multi_shard_kernel``: the host path on a multi-shard store)
-   and ``use_kernel=True``, where the 4 shard threads launch the Bloom
-   probe at once, one a touched shard for ``multi_exists``, and the lookup
-   on each shard whose batch reaches ``large_table.kernel_min_queries``
-   (the script fails on any other count).  Then both routes named explicitly,
-   alternated 15 times each on the warm store with the value caches
-   dropped before each call, every answer checked: the evidence for the
-   multi-shard default route.  Then one flipped
+   submit to done; flush, close, then ``multi_exists`` (half absent) and
+   ``multi_get``, their present keys drawn shard by shard so that each
+   shard's share reaches the lookup's threshold
+   (``large_table.kernel_min_queries``: 9216 a shard on the card), each
+   route after its own reopen: the default (the host path on a
+   multi-shard store) and ``use_kernel=True``, where the 4 shard threads
+   launch at once the Bloom probe and the lookup, each once a shard for
+   each call (the script fails on any other count).  Then both routes
+   named explicitly, alternated 15 times each on the warm store with the
+   value caches dropped before each call, every answer checked: the
+   evidence for the multi-shard default route.  Then one flipped
    value byte in a key's primary copy: the server's get must fail over to
    the replica, and ``repair()`` must restore the copy and clear the
-   quarantine.
+   quarantine.  Last, phase 3's routing sweep on shard 0's store.
 9. Qwen2-MoE-A2.7B at full width and depth through ``ServingEngine`` (60
    routed experts top-4 and 4 shared, GShard capacity dispatch): the
    random fp32 weights cast to bf16 leaf by leaf (router and norm scales
@@ -169,7 +171,8 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    leveled and key-value separated) each take 2^18 uniform 32-byte keys
    with 1 KiB values (cut from phase 3's 2^20 for the script's time):
    put ops/s (``put_many`` in batches of 4096 against scalar ``put``),
-   flush, write amplification, then 8192 gets and 32768 existence checks
+   flush, the fill rate (puts and flush, as the reference's benchmarks
+   time it), write amplification, then 8192 gets and 32768 existence checks
    (half absent) with the value caches dropped, batched against scalar;
    every answer checked.
 
@@ -209,7 +212,7 @@ N_SHARDS = 4                   # the reference's sharded engine
 REPLICATION = 2                # its self-healing benchmark's setting
 SERVER_BATCH = 4096
 MIXED_REQUESTS = 65536
-SWEEP_SIZES = [8 << i for i in range(11)]     # 8 .. 8192 queries a batch
+SWEEP_SIZES = [8 << i for i in range(13)]     # 8 .. 32768 queries a batch
 SWEEP_SAMPLES = 21             # a route and size, in alternating order
 ROUTE_PAIRS = 15               # phase 8's alternations of the two routes
 ENGINE_KEYS = 1 << 18          # phase 14: cut from phase 3's 2^20
@@ -2504,7 +2507,10 @@ def main_path(n_keys: int, seed: int, workdir: str,
         kernel_lookups=db.stats()["batched_kernel_lookups"])
     if device == "cuda":
         res["profile"] = profile_reads(db, probe, gkeys)
-    res["routing"] = routing_sweep(db, present, absent, gkeys, device)
+    # The sweep's gets reach its largest size (phase 3's gkeys are 8192).
+    sweep_gets = [keys[i] for i in rng.choice(
+        n_keys, min(n_keys, SWEEP_SIZES[-1]), replace=False)]
+    res["routing"] = routing_sweep(db, present, absent, sweep_gets, device)
     db.close()
     return res
 
@@ -2674,8 +2680,8 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
     from repro_torch.core.tidestore import (DbConfig, KeyspaceConfig,
                                             ReadOptions, ShardedTideDB,
                                             read_repair_table)
+    from repro_torch.core.tidestore.bloom import kernel_min_batch
     from repro_torch.core.tidestore.large_table import kernel_min_queries
-    from repro_torch.core.tidestore.shard import multi_shard_kernel
     from repro_torch.core.tidestore.wal import HEADER_SIZE, _ENTRY_HDR
     from repro_torch.serving.kv_server import KvBatchServer
     rep = 1024 // 32                   # value = key x 32: 1 KiB, checkable
@@ -2745,12 +2751,30 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
     res["flush_close_s"] = time.perf_counter() - t0
 
     live = [k for k in keys if state[k] is not None]
-    present = [live[i] for i in rng.choice(len(live), EXISTS_KEYS // 2,
-                                           replace=False)]
-    probe = present + absent
-    gkeys = [live[i] for i in rng.choice(len(live), GET_KEYS,
-                                         replace=False)]
+    # Each shard's share of the reads reaches the lookup's threshold on this
+    # device (by an eighth), so that C launches on every shard at
+    # use_kernel=True; on the CPU, 2048 a shard.  The keys are
+    # drawn shard by shard (``shard_of`` is the key's crc32, no state),
+    # then shuffled.
+    lookup_min, bloom_min = kernel_min_queries(device), kernel_min_batch(
+        device)
+    per_shard = max(GET_KEYS // N_SHARDS, lookup_min + lookup_min // 8)
+    by_shard = collections.defaultdict(list)
+    for k in live:
+        by_shard[sdb.shard_of(k)].append(k)
+
+    def draw(n):
+        out = [by_shard[s][i] for s in sorted(by_shard)
+               for i in rng.choice(len(by_shard[s]), n, replace=False)]
+        return [out[i] for i in rng.permutation(len(out))]
+
+    present = draw(max(EXISTS_KEYS // 2 // N_SHARDS, per_shard))
+    gkeys = draw(per_shard)
+    absent_probe = make_keys(len(present), tag + b"absent")
+    probe = present + absent_probe
+    want_exists = [True] * len(present) + [False] * len(absent_probe)
     want_get = [state[k] for k in gkeys]
+    res.update(gets=len(gkeys), probes=len(probe), reads_per_shard=per_shard)
     # Each route twice, in the order default, kernel, kernel, default, each
     # run after its own reopen (cells UNLOADED, nothing memoized).
     runs = {"default": [], "use_kernel": []}
@@ -2764,7 +2788,7 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
         for name, call, n, want in (
                 ("multi_exists", lambda: sdb.multi_exists(
                     probe, keyspace="kv", opts=opts), len(probe),
-                 [True] * len(present) + [False] * len(absent)),
+                 want_exists),
                 ("multi_get", lambda: sdb.multi_get(
                     gkeys, keyspace="kv", opts=opts), len(gkeys), want_get)):
             launched, before = read_launches(), _dispatches()
@@ -2782,31 +2806,37 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
                 "dispatches": {k: v - before[k]
                                for k, v in _dispatches().items()}}
         runs[route].append(calls)
-    touched = len({sdb.shard_of(k) for k in probe})
-    lookup_min = kernel_min_queries(device)
+    cells = sdb.shards[0].cfg.keyspaces[0].n_cells
 
-    def lookups(keys_):
-        """Shards whose batch reaches the lookup's threshold: each of them
-        launches C once (a touched cell's keys all resolve from its blob
-        at these sizes; ``multi_exists`` adds a few Bloom false positives
-        to its present keys, far from the threshold here)."""
-        per_shard = collections.Counter(sdb.shard_of(k) for k in keys_)
-        return sum(n >= lookup_min for n in per_shard.values())
+    def shards_over(keys_, least):
+        """Shards whose share of ``keys_`` reaches ``least``."""
+        per = collections.Counter(sdb.shard_of(k) for k in keys_)
+        return sum(n >= least for n in per.values())
 
-    # With use_kernel=True each touched shard launches B once for
-    # multi_exists (8192 probes over its 64 cells, 128 a cell, over
-    # bloom.py's 64) and multi_get launches no B (2048 gets a shard is 32 a
-    # cell); C launches on each shard whose batch reaches the lookup's
-    # threshold.
+    # With use_kernel=True, on each shard: B once where its batch averages
+    # the Bloom probe's threshold a cell (a shard's blob memo holds few of
+    # its cells' parsed blobs at this size, so most cells probe, the gets'
+    # too), and C once where its disk-resolved queries reach the lookup's
+    # threshold (its present keys; the Bloom's few false positives add to
+    # them).  The default route launches neither.
     kernel_calls = {name: {k: v for k, v in calls.items() if v} for name,
                     calls in (("multi_exists", {
-                        "bloom_check_ragged": touched,
-                        "optimistic_lookup_resolve": lookups(present)}),
+                        "bloom_check_ragged": shards_over(
+                            probe, bloom_min * cells),
+                        "optimistic_lookup_resolve": shards_over(
+                            present, lookup_min)}),
                         ("multi_get", {
-                            "optimistic_lookup_resolve": lookups(gkeys)}))}
-    want = {"default": kernel_calls if multi_shard_kernel(device) else
-            {"multi_exists": {}, "multi_get": {}},
+                            "bloom_check_ragged": shards_over(
+                                gkeys, bloom_min * cells),
+                            "optimistic_lookup_resolve": shards_over(
+                                gkeys, lookup_min)}))}
+    want = {"default": {"multi_exists": {}, "multi_get": {}},
             "use_kernel": kernel_calls}
+    if device == "cuda" and any(
+            kernel_calls[n].get("optimistic_lookup_resolve") != N_SHARDS
+            for n in kernel_calls):
+        fail(f"the sharded reads do not reach the lookup's threshold on "
+             f"every shard: {kernel_calls}")
     for route, calls_list in runs.items():
         for calls in calls_list:
             for name, c in calls.items():
@@ -2823,18 +2853,17 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
         "launches": calls_list[0][name]["launches"]}
         for name in ("multi_exists", "multi_get")}
         for route, calls_list in runs.items()}
-    res["default_route"] = "kernel" if multi_shard_kernel(device) else "host"
 
     # The multi-shard default route (ROADMAP A.4): both routes named
     # explicitly, alternated ROUTE_PAIRS times on the warm store, each call
     # after the value caches are dropped; every answer checked.
     def timed_call(name, kernel):
         opts = ReadOptions(use_kernel=kernel)
-        keys, want_ = ((probe, [True] * len(present) + [False] * len(absent))
-                       if name == "multi_exists" else (gkeys, want_get))
+        keys_, want_ = ((probe, want_exists) if name == "multi_exists"
+                        else (gkeys, want_get))
         sdb.clear_caches()
         t0 = time.perf_counter()
-        got = getattr(sdb, name)(keys, keyspace="kv", opts=opts)
+        got = getattr(sdb, name)(keys_, keyspace="kv", opts=opts)
         sync()
         dt = time.perf_counter() - t0
         if got != want_:
@@ -2853,12 +2882,6 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
                                                 alt[name]["kernel"])
         alt[name]["host_wins"] = _kernel_wins(alt[name]["kernel"],
                                               alt[name]["host"])
-    # The kernel route becomes the default where it wins one call and
-    # loses neither.
-    alt["kernel_route_wins"] = \
-        any(alt[n]["kernel_wins"] for n in ("multi_exists", "multi_get")) \
-        and not any(alt[n]["host_wins"] for n in ("multi_exists",
-                                                  "multi_get"))
     res["route_alternation"] = alt
 
     # Failover and repair: one flipped value byte in a key's primary copy.
@@ -2894,6 +2917,15 @@ def sharded_phase(n_keys: int, seed: int, workdir: str,
                repair_table=table["summary"],
                value_wal_bytes=sum(sh.value_wal.tail for sh in sdb.shards))
     res["launches"] = read_launches()
+    # Phase 3's routing sweep on shard 0's store (64 cells, each as full as
+    # phase 3's 256), over keys it holds: after the launches are read, as
+    # its kernel calls compare routes.
+    held = [k for k in live if 0 in sdb.replicas_of(sdb.shard_of(k))]
+    pick = rng.choice(len(held), min(len(held), EXISTS_KEYS // 2
+                                     + SWEEP_SIZES[-1]), replace=False)
+    res["routing_shard0"] = routing_sweep(
+        sdb.shards[0], [held[i] for i in pick[:EXISTS_KEYS // 2]],
+        absent_probe, [held[i] for i in pick[EXISTS_KEYS // 2:]], device)
     sdb.close()
     return res
 
@@ -2907,11 +2939,18 @@ def engines_phase(n_keys: int, seed: int, workdir: str,
     separated), each in a fresh directory, take the same ``n_keys``
     uniform 32-byte keys with 1 KiB values: ``put_many`` in batches of
     4096 for ``TideDB`` and scalar ``put`` for the baselines, then
-    ``flush``; the value caches are dropped; then 8192 gets of present
-    keys and 32768 existence checks, half of them absent (``multi_get`` /
-    ``multi_exists`` for ``TideDB``, scalar calls for the baselines).
-    Every answer is checked; write amplification is the engine's
-    ``bytes_written_disk / bytes_written_app``."""
+    ``flush``.  The fill rate counts the puts and the flush together, as
+    the reference's ``Bench.fill`` (``benchmarks/engines.py``) does; the
+    put rate leaves the flush out, which for ``TideDB`` is most of its
+    fill (its index tables and Bloom filters are written there), while
+    the baselines flush their memtables and compact inside ``put``.  The
+    reference fills every engine with scalar ``put``: ``TideDB``'s
+    batched ``put_many`` here differs from it.  The value caches are
+    dropped; then 8192 gets of present keys and 32768 existence checks,
+    half of them absent (``multi_get`` / ``multi_exists`` for ``TideDB``,
+    scalar calls for the baselines).  Every answer is checked; write
+    amplification is the engine's ``bytes_written_disk /
+    bytes_written_app``."""
     import torch
     from repro_torch.core.lsm_baseline import LsmBaseline, LsmConfig
     from repro_torch.core.tidestore import DbConfig, KeyspaceConfig, TideDB
@@ -2971,7 +3010,7 @@ def engines_phase(n_keys: int, seed: int, workdir: str,
                  f"checks differ from what was written")
         res[name] = {
             "put_s": t1 - t0, "put_ops_s": n_keys / (t1 - t0),
-            "flush_s": t2 - t1,
+            "flush_s": t2 - t1, "fill_ops_s": n_keys / (t2 - t0),
             "write_amp": st["bytes_written_disk"] / st["bytes_written_app"],
             "bytes_written_app": st["bytes_written_app"],
             "bytes_written_disk": st["bytes_written_disk"],
@@ -2987,7 +3026,8 @@ def engines_phase(n_keys: int, seed: int, workdir: str,
     for name in ("rocksdb(sim)", "blobdb(sim)"):
         res[f"tidehunter_over_{name}"] = {
             m: tide[m] / res[name][m]
-            for m in ("put_ops_s", "get_ops_s", "exists_ops_s")}
+            for m in ("fill_ops_s", "put_ops_s", "get_ops_s",
+                      "exists_ops_s")}
     return res
 
 
@@ -3028,6 +3068,21 @@ def _kernel_name(mangled: str) -> str:
             return mangled[m.end():end] + (f"<{args[1:]}>" if
                                            args.startswith("I") else "")
     return mangled
+
+
+def say_sweep(rt: dict, head: str) -> None:
+    """A routing sweep's lines: each route's median (IQR) by batch size,
+    and the size from which the kernel route wins."""
+    for what, unit in (("bloom", "queries a touched cell"),
+                       ("lookup", "disk-resolved queries")):
+        say(f"{head}: {what}, median (IQR) ms host / kernel by batch size "
+            f"(queries routed): " + ", ".join(
+                f"{b} ({r['queries']}): {r['host']['median_ms']:.4f} "
+                f"({r['host']['iqr_ms']:.4f}) / "
+                f"{r['kernel']['median_ms']:.4f} "
+                f"({r['kernel']['iqr_ms']:.4f})"
+                for b, r in sorted(rt[what].items())) +
+            f"; kernel wins from {rt[f'{what}_kernel_wins_from']} {unit}")
 
 
 def card_line() -> str:
@@ -3087,7 +3142,9 @@ def main() -> None:
     (ROOT / "build").mkdir(exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="tidedb-smoke-", dir=ROOT / "build")
     try:
+        t_phase = time.perf_counter()
         path = main_path(args.keys, args.seed, workdir)
+        path["phase_s"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"main path [{card}]: {json.dumps(path)}")
@@ -3097,21 +3154,15 @@ def main() -> None:
     for name in ("bloom_check_ragged", "optimistic_lookup_resolve"):
         if path["launches"][name] < 1:
             fail(f"the main path never launched {name}")
-    rt = path["routing"]
-    for what, unit in (("bloom", "queries a touched cell"),
-                       ("lookup", "disk-resolved queries")):
-        say(f"routing sweep [{card}]: {what}, median (IQR) ms host / kernel "
-            f"by batch size (queries routed): " + ", ".join(
-                f"{b} ({r['queries']}): {r['host']['median_ms']:.4f} "
-                f"({r['host']['iqr_ms']:.4f}) / "
-                f"{r['kernel']['median_ms']:.4f} "
-                f"({r['kernel']['iqr_ms']:.4f})"
-                for b, r in sorted(rt[what].items())) +
-            f"; kernel wins from {rt[f'{what}_kernel_wins_from']} {unit}")
+    say_sweep(path["routing"], f"routing sweep [{card}]")
 
     workdir = tempfile.mkdtemp(prefix="tidedb-sharded-", dir=ROOT / "build")
     try:
-        sharded = sharded_phase(args.keys, args.seed, workdir)
+        # Half phase 3's keys: 2 replicas over 4 shards of 64 cells then
+        # fill each cell as full as phase 3's 256.
+        t_phase = time.perf_counter()
+        sharded = sharded_phase(args.keys // 2, args.seed, workdir)
+        sharded["phase_s"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"sharded server [{card}]: {json.dumps(sharded)}")
@@ -3127,7 +3178,9 @@ def main() -> None:
         f"{sharded['mixed_ops_s']:.0f} ops/s (sojourn p50 "
         f"{sharded['sojourn_p50_ms']:.1f} ms, p99 "
         f"{sharded['sojourn_p99_ms']:.1f} ms), flush and close "
-        f"{sharded['flush_close_s']:.1f} s; ops/s default / use_kernel: "
+        f"{sharded['flush_close_s']:.1f} s; {sharded['gets']} gets and "
+        f"{sharded['probes']} probes, {sharded['reads_per_shard']} a "
+        f"shard; ops/s default / use_kernel: "
         f"multi_exists {both('multi_exists')}, multi_get "
         f"{both('multi_get')}")
 
@@ -3138,19 +3191,25 @@ def main() -> None:
             f"({al[n]['host']['iqr_ms']:.2f}) / "
             f"{al[n]['kernel']['median_ms']:.2f} "
             f"({al[n]['kernel']['iqr_ms']:.2f})"
-            for n in ("multi_exists", "multi_get")) +
-        f"; kernel route wins: {al['kernel_route_wins']}; default route "
-        f"{sharded['default_route']}")
+            for n in ("multi_exists", "multi_get")) + "; kernel wins: " +
+        ", ".join(f"{n} {al[n]['kernel_wins']}, host wins: {n} "
+                  f"{al[n]['host_wins']}" for n in ("multi_exists",
+                                                    "multi_get")))
+    say_sweep(sharded["routing_shard0"], f"routing sweep, shard 0 [{card}]")
 
     workdir = tempfile.mkdtemp(prefix="engines-", dir=ROOT / "build")
     try:
+        t_phase = time.perf_counter()
         engines = engines_phase(min(args.keys, ENGINE_KEYS), args.seed,
                                 workdir)
+        engines["phase_s"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"engine comparison [{card}]: {json.dumps(engines)}")
     say(f"engine comparison [{card}]: {engines['keys']} keys x 1 KiB; " +
-        "; ".join(f"{n} put {engines[n]['put_ops_s']:.0f} ops/s, write amp "
+        "; ".join(f"{n} fill (puts and flush) "
+                  f"{engines[n]['fill_ops_s']:.0f} ops/s, put "
+                  f"{engines[n]['put_ops_s']:.0f} ops/s, write amp "
                   f"{engines[n]['write_amp']:.3f}, get "
                   f"{engines[n]['get_ops_s']:.0f} ops/s, exists "
                   f"{engines[n]['exists_ops_s']:.0f} ops/s"

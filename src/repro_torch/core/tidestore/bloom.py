@@ -25,10 +25,12 @@ import numpy as np
 # Below this many queries a touched cell, on average, the kernel's launch
 # and copies cost more than the numpy path, which computes the identical
 # answer.  On the CPU the JAX package's value, so that the counters equal
-# the reference's.  On the card ``chip_smoke.py``'s phase-3 sweep found the
-# numpy path faster up to 16 queries a cell and the two unresolved at 32
-# (its largest size): no size qualified, so the JAX package's value stays
-# there too (PERF.md §6).
+# the reference's.  On the card ``chip_smoke.py``'s phase-3 sweep (256
+# cells) found the numpy path faster up to 16 queries a cell, the two
+# unresolved at 32, and the kernel faster at 64 and 128: the JAX package's
+# value stays there too.  On one shard of phase 8 (64 cells) the kernel won
+# from 256 a cell; on both stores the crossover lies between 8192 and 16384
+# queries a batch (PERF.md §6).
 _KERNEL_MIN_BATCH = {"cpu": 64, "cuda": 64}
 
 

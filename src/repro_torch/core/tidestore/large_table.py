@@ -30,9 +30,11 @@ from .util import Metrics
 # Below this many disk-resolved queries per batch, the lookup kernel's launch
 # and copies cost more than the host searchsorted it replaces.  On the CPU
 # the JAX package's value, so that the counters equal the reference's.  On
-# the card the value ``chip_smoke.py``'s phase-3 sweep measured over 2^20
-# keys: the host route won below 2048 queries, 4096 was unresolved, and
-# the kernel route won at 8192 (PERF.md §6).
+# the card the value ``chip_smoke.py``'s sweeps measured on two layouts,
+# phase 3's store (2^20 keys, 256 cells) and one shard of phase 8's (2^18
+# keys, 64 cells, as full a cell): on both the host route won below 2048
+# queries, 4096 was unresolved, and the kernel route won at 8192, 16384
+# and 32768 (PERF.md §6).  Other layouts were not measured.
 _KERNEL_MIN_QUERIES = {"cpu": 128, "cuda": 8192}
 
 

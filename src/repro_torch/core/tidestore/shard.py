@@ -82,23 +82,6 @@ def _per_shard_config(cfg: DbConfig, n_shards: int) -> DbConfig:
         flusher_threads=max(1, cfg.flusher_threads // n_shards))
 
 
-# Whether a batched read over several shards that names no route launches
-# the kernels.  The JAX package takes the host route: it was set against
-# JAX's concurrent jit dispatch from shard threads, which serializes on that
-# runtime's locks (and the GIL), while the host resolution path releases the
-# GIL in its numpy bulk work.  The CPU keeps it, so that the counters equal
-# the reference's.  On the card ``chip_smoke.py``'s phase 8 alternated both
-# routes 15 times on 4 shards at 2^20 keys: the two were within each
-# other's spread for ``multi_exists`` and ``multi_get``, so the host route
-# stays (PERF.md §6).
-_MULTI_SHARD_KERNEL = {"cpu": False, "cuda": False}
-
-
-def multi_shard_kernel(device: str) -> bool:
-    """The multi-shard default route on ``device``: True for the kernels."""
-    return _MULTI_SHARD_KERNEL[device.split(":")[0]]
-
-
 class ShardedTideDB:
     """N ``TideDB`` shards behind one ``Engine`` surface."""
 
@@ -278,9 +261,8 @@ class ShardedTideDB:
         None (scalar parity)."""
         base = opts or ReadOptions()
         if base.use_kernel is None:
-            # The multi-shard default route, as in ``_multi`` (see there).
-            base = dataclasses.replace(
-                base, use_kernel=multi_shard_kernel(self.cfg.device))
+            # The multi-shard host route, as in ``_multi`` (see there).
+            base = dataclasses.replace(base, use_kernel=False)
         strict = dataclasses.replace(base, strict_errors=True)
         prims = [self.shard_of(k) for k in keys]
         orders = [self._read_order(p) for p in prims]
@@ -356,12 +338,21 @@ class ShardedTideDB:
             ((sid, _),) = groups.items()
             return getattr(self.shards[sid], method)(keys, keyspace, opts=opts)
         if opts is None or opts.use_kernel is None:
-            # A read that names no route takes ``_MULTI_SHARD_KERNEL``'s.
+            # The JAX package's default, kept for parity: it was set against
+            # JAX's concurrent jit dispatch from shard threads, which
+            # serializes on that runtime's locks (and the GIL), while the
+            # host resolution path releases the GIL in its numpy bulk work.
+            # On the card ``chip_smoke.py`` phase 8 alternated both routes 15
+            # times on 4 shards, each shard's batch over the lookup's
+            # threshold (median (IQR) ms, host / kernel, on an H100):
+            # multi_exists of 73728 keys 858.06 (74.59) / 841.40 (125.25),
+            # multi_get of 36864 keys 2141.12 (525.17) / 2471.07 (482.77).
+            # Neither route won by more than the spread, so the host route
+            # stays there too (PERF.md §6).
             # Routing never changes answers; an explicit
-            # ReadOptions(use_kernel=...) overrides.
-            opts = dataclasses.replace(
-                opts or ReadOptions(),
-                use_kernel=multi_shard_kernel(self.cfg.device))
+            # ReadOptions(use_kernel=True) overrides.
+            opts = dataclasses.replace(opts or ReadOptions(),
+                                       use_kernel=False)
         def work(sid, idx):
             # Sub-list construction runs inside the worker too, so the main
             # thread only fans out and merges.

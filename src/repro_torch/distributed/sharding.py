@@ -340,10 +340,15 @@ def constrain(x, spec: tuple):
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    want = placements(spec, x.device_mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    return _to(x, placements(spec, x.device_mesh))
+
+
+def _to(t, want):
+    """The DTensor ``t`` redistributed to the placements ``want``, or ``t``
+    itself where it has them already."""
+    if tuple(t.placements) == tuple(want):
+        return t
+    return t.redistribute(t.device_mesh, tuple(want))
 
 
 # ---------------------------------------------------- vocab-parallel loss
@@ -353,12 +358,6 @@ def constrain(x, spec: tuple):
 # product comes out pending a sum over the whole vocabulary.  These hooks
 # steer the head and the loss (``models/transformer.py``); like
 # ``constrain``, each returns a plain tensor as it is.
-def _to(t, want):
-    if tuple(t.placements) == tuple(want):
-        return t
-    return t.redistribute(t.device_mesh, tuple(want))
-
-
 def vocab_parallel_input(x, w, vocab_dim: int):
     """The head's input ``x`` whole on each mesh dim that splits the head
     weight ``w`` along its vocab dim, so that the logits come out split

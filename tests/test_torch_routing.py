@@ -1,9 +1,10 @@
-"""The storage kernels' routing by device: on the CPU the thresholds and the
-multi-shard default route are the JAX package's, so that the mirrors'
-counters equal the reference's; on the card they are the values measured
-there (``chip_smoke.py`` phases 3 and 8).  Each is read from the engine's
-device, and routing never changes an answer: at batch sizes just below
-and just above each threshold, both routes answer as scalar reads do."""
+"""The storage kernels' routing by device: on the CPU the thresholds are the
+JAX package's, so that the mirrors' counters equal the reference's; on the
+card they are the values measured there (``chip_smoke.py`` phases 3 and
+8).  Each is read from the engine's device, and routing never changes an
+answer: at batch sizes just below and just above each threshold, both
+routes answer as scalar reads do.  A multi-shard read that names no route
+takes the host route on every device, as in the JAX package."""
 import hashlib
 
 import pytest
@@ -12,7 +13,7 @@ from repro.core.tidestore import bloom as ref_bloom
 from repro.core.tidestore import large_table as ref_large_table
 from repro_torch.core.tidestore import (DbConfig, KeyspaceConfig,
                                         ReadOptions, ShardedTideDB, TideDB,
-                                        bloom, large_table, shard)
+                                        bloom, large_table)
 from repro_torch.kernels.bloom_check import ops as bloom_ops
 
 N_KEYS = max(large_table._KERNEL_MIN_QUERIES.values()) + 256
@@ -22,7 +23,6 @@ def test_cpu_routing_is_the_references():
     assert large_table.kernel_min_queries("cpu") == \
         ref_large_table._KERNEL_MIN_QUERIES
     assert bloom.kernel_min_batch("cpu") == ref_bloom._KERNEL_MIN_BATCH
-    assert shard.multi_shard_kernel("cpu") is False
 
 
 def test_cuda_routing_is_read_from_the_device_type():
@@ -30,10 +30,7 @@ def test_cuda_routing_is_read_from_the_device_type():
         assert large_table.kernel_min_queries(dev) == \
             large_table._KERNEL_MIN_QUERIES["cuda"]
         assert bloom.kernel_min_batch(dev) == bloom._KERNEL_MIN_BATCH["cuda"]
-        assert shard.multi_shard_kernel(dev) is \
-            shard._MULTI_SHARD_KERNEL["cuda"]
-    for table in (large_table._KERNEL_MIN_QUERIES, bloom._KERNEL_MIN_BATCH,
-                  shard._MULTI_SHARD_KERNEL):
+    for table in (large_table._KERNEL_MIN_QUERIES, bloom._KERNEL_MIN_BATCH):
         assert set(table) == {"cpu", "cuda"}
 
 
@@ -99,10 +96,10 @@ def test_get_routes_agree_around_the_lookup_threshold(store, size):
     assert got[False] == got[True] == [k * 4 for k in batch]
 
 
-def test_multi_shard_default_route_follows_the_device(tmp_path):
-    """A multi-shard read that names no route takes the device's default
-    (the host route on the CPU): no lookup reaches the kernel wrapper,
-    while ``use_kernel=True`` does; the answers are equal."""
+def test_multi_shard_default_route_is_the_host(tmp_path):
+    """A multi-shard read that names no route takes the host route: no
+    lookup reaches the kernel wrapper, while ``use_kernel=True`` does; the
+    answers are equal."""
     cfg = DbConfig(keyspaces=[KeyspaceConfig("kv", n_cells=4)],
                    device="cpu")
     sdb = ShardedTideDB(str(tmp_path), cfg, n_shards=2, replication=2)
@@ -115,7 +112,6 @@ def test_multi_shard_default_route_follows_the_device(tmp_path):
         before = sdb.stats()["batched_kernel_lookups"]
         got[opts is None] = sdb.multi_get(keys, keyspace="kv", opts=opts)
         routed = sdb.stats()["batched_kernel_lookups"] - before
-        assert (routed > 0) == (opts is not None or
-                                shard.multi_shard_kernel("cpu"))
+        assert (routed > 0) == (opts is not None)
     assert got[True] == got[False] == keys
     sdb.close()
