@@ -160,11 +160,15 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    the roofline of phase 12's train step and of the serving phase's
    Llama-3-8B decode step, beside their measured times (MFU, multiple of
    the bound); (f) the dry run's qwen3-0.6b x train_4k cell on a fake
-   process group of 256 ranks and mamba2-1.3b's SMOKE train cell on a
-   fake (2, 2) mesh (its SSD's cumsums flip in the backward, for which
-   this torch's DTensor may lack a rule: the dry run then registers its
-   own), each in a subprocess, status ``ok``, no op run replicated but
-   those ``dryrun.REPLICABLE`` names, each with the bytes it gathered.
+   process group of 256 ranks, mamba2-1.3b's SMOKE train cell on a fake
+   (2, 2) mesh (its SSD's cumsums flip in the backward, for which this
+   torch's DTensor may lack a rule: the dry run then registers its own),
+   and mamba2-1.3b x train_4k on 16 x 16 and 2 x 16 x 16, each in a
+   subprocess, all at once: status ``ok``, no op run replicated but those
+   ``dryrun.REPLICABLE`` names, each with the bytes it gathered; in the
+   qwen3 cell no view (a torch whose view rule predates
+   ``_StridedShard`` gets the dry run's) and a peak a device at most
+   1.5x the JAX package's for the same cell.
 14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
    3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
    ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
@@ -175,6 +179,15 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    time it), write amplification, then 8192 gets and 32768 existence checks
    (half absent) with the value caches dropped, batched against scalar;
    every answer checked.
+15. The scrub race (after phase 14): ``scrub_race_phase`` on phase 3's
+   layout at 2^14 keys, 5 ``scrub()`` passes racing a thread of
+   ``put_many`` of 64 keys and ``prune_step(PruneOptions(
+   batch_records=64))``, whose relocation drops segments under the
+   scrubber; after each pass the untouched keys read back through
+   ``multi_get`` and ``multi_exists`` with ``use_kernel=True`` (B and C
+   launch), the churned ones once the thread stops.  No pass may report
+   a corruption or quarantine a position, and every answer must be what
+   was last written.
 
 Every launch count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}``, each kernel with its
@@ -2210,19 +2223,26 @@ def _roofline_line(name, cfg, cost, n_tokens, kind, ms, peak) -> dict:
                 over_bound=ms / bound_ms)
 
 
-def dryrun_cell_subprocess(arch: str = "qwen3-0.6b", shape: str = "train_4k",
-                           smoke: bool = False) -> dict:
-    """``lower_cell(arch, shape, multi_pod=False)`` on the fake 256-rank
-    group, in a process of its own (the fake group replaces the live one,
-    and this process's NCCL group must stay).  With ``smoke``, the SMOKE
-    config's cell of kind ``shape`` (4 x 64 tokens) on a fake (2, 2) mesh
-    of 4 ranks, as the CPU tests run it; its record says whether the dry
-    run registered its own ``flip`` rule (``flip_rule_registered``)."""
+# The JAX package's ``lower_cell("qwen3-0.6b", "train_4k", False)`` on the
+# CPU (XLA's buffer assignment and its collectives; PERF.md §6): what
+# phase 13 (f)'s cell is held against.
+REF_DRYRUN_PEAK = 1.9099226936e10
+REF_DRYRUN_COLLECTIVES = 7.4970554408e10
+
+
+def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool) -> str:
+    """The program of one dry-run cell: ``lower_cell(arch, shape,
+    multi_pod)`` on the fake group of 256 or 512 ranks, or with ``smoke``
+    the SMOKE config's cell of kind ``shape`` (4 x 64 tokens) on a fake
+    (2, 2) mesh of 4 ranks, as the CPU tests run it, whose record says
+    whether the dry run registered its own ``flip`` rule
+    (``flip_rule_registered``).  Each record says whether it registered
+    its own view rule (``view_rule_registered``: on a torch whose view
+    rule predates ``_StridedShard``)."""
     if smoke:
         cell = ("from torch.distributed.device_mesh import "
                 "init_device_mesh\n"
                 "from repro_torch.configs.registry import ShapeSpec\n"
-                "from repro_torch.launch import dryrun\n"
                 "from repro_torch.launch.mesh import "
                 "init_fake_process_group\n"
                 "init_fake_process_group(4)\n"
@@ -2234,23 +2254,55 @@ def dryrun_cell_subprocess(arch: str = "qwen3-0.6b", shape: str = "train_4k",
                 "mesh=mesh, smoke=True)\n"
                 "e['flip_rule_registered'] = registered\n")
     else:
-        cell = ("from repro_torch.launch.dryrun import lower_cell\n"
-                f"e = lower_cell({arch!r}, {shape!r}, multi_pod=False)\n")
-    code = ("import json, logging\n"
+        cell = (f"e = dryrun.lower_cell({arch!r}, {shape!r}, "
+                f"multi_pod={multi_pod})\n")
+    return ("import json, logging\n"
+            "import torch\n"
+            "from torch.distributed.tensor import DTensor\n"
+            "from repro_torch.launch import dryrun\n"
             "logging.getLogger('torch.distributed.tensor')"
             ".setLevel(logging.ERROR)\n" + cell +
+            "e['view_rule_registered'] = DTensor._op_dispatcher"
+            ".sharding_propagator.op_strategy_funcs.get("
+            "torch.ops.aten.view.default) is dryrun._view_strategy\n"
             "print('DRYRUN ' + json.dumps(e))\n")
+
+
+def dryrun_cells(cells: dict) -> dict:
+    """Each cell of ``cells`` (key → ``(arch, shape, multi_pod, smoke)``)
+    in a process of its own, all at once (the fake group replaces the live
+    one, and this process's NCCL group must stay) → key → its record with
+    ``subprocess_s``.  Fails on a cell that does not print its record."""
     env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, env=env)
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("DRYRUN ")]
-    if res.returncode != 0 or not lines:
-        fail(f"dry-run cell {arch} x {shape}: exit {res.returncode}: "
-             f"{res.stderr.strip()[-2000:]}")
-    entry = json.loads(lines[-1][len("DRYRUN "):])
-    entry["subprocess_s"] = time.perf_counter() - t0
-    return entry
+    out, procs = {}, {}
+    with tempfile.TemporaryDirectory() as logs:
+        t0 = time.perf_counter()
+        try:
+            for key, (arch, shape, multi_pod, smoke) in cells.items():
+                path = os.path.join(logs, key)
+                with open(path + ".out", "w") as o, \
+                        open(path + ".err", "w") as e:
+                    procs[key] = subprocess.Popen(
+                        [sys.executable, "-c", _dryrun_code(
+                            arch, shape, multi_pod, smoke)],
+                        stdout=o, stderr=e, env=env)
+            for key, proc in procs.items():
+                rc = proc.wait(timeout=max(1.0, 900 - (time.perf_counter()
+                                                       - t0)))
+                path = os.path.join(logs, key)
+                lines = [ln for ln in open(path + ".out").read().splitlines()
+                         if ln.startswith("DRYRUN ")]
+                if rc != 0 or not lines:
+                    fail(f"dry-run cell {key}: exit {rc}: "
+                         f"{open(path + '.err').read().strip()[-2000:]}")
+                out[key] = json.loads(lines[-1][len("DRYRUN "):])
+                out[key]["subprocess_s"] = time.perf_counter() - t0
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return out
 
 
 def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
@@ -2266,8 +2318,7 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     leaf equal to the plain restore; (d) ``pipeline_forward`` with one
     stage against the sequential loop; (e) the roofline of phase 12's train step and the serving phase's
     Llama-3-8B decode step beside their measured times; (f) the dry run's
-    qwen3-0.6b x train_4k cell on a fake group of 256 ranks, in a
-    subprocess."""
+    cells, each in a subprocess (``dryrun_cells``)."""
     import gc
     import torch
     import torch.distributed as dist
@@ -2428,11 +2479,16 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         bound_ms=max(lplain.flops / BF16_OPS_PER_S,
                      lplain.bytes / HBM_BYTES_PER_S) * 1e3)
 
-    # (f) the dry-run cell on the fake 256-rank group, and mamba2-1.3b's
-    # SMOKE train cell on a fake (2, 2) mesh (its cumsum's backward flips)
-    for key, cell in (("dryrun_cell", dryrun_cell_subprocess()),
-                      ("dryrun_mamba2_smoke", dryrun_cell_subprocess(
-                          "mamba2-1.3b", "train", smoke=True))):
+    # (f) the dry-run cells: qwen3-0.6b x train_4k on the fake 256-rank
+    # group, mamba2-1.3b's SMOKE train cell on a fake (2, 2) mesh (its
+    # cumsum's backward flips), and mamba2-1.3b x train_4k on 16 x 16 and
+    # 2 x 16 x 16 (its SSD's head views, ROADMAP C.12)
+    cells = dryrun_cells({
+        "dryrun_cell": ("qwen3-0.6b", "train_4k", False, False),
+        "dryrun_mamba2_smoke": ("mamba2-1.3b", "train", False, True),
+        "dryrun_mamba2": ("mamba2-1.3b", "train_4k", False, False),
+        "dryrun_mamba2_multi": ("mamba2-1.3b", "train_4k", True, False)})
+    for key, cell in cells.items():
         if cell.get("status") != "ok":
             fail(f"dry-run cell {key}: {cell.get('status')}")
         if not set(cell["replicated_calls"]) <= REPLICABLE:
@@ -2443,8 +2499,23 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         res[key] = {k: cell[k] for k in (
             "arch", "shape", "mesh", "status", "cost_s", "trace_s", "memory",
             "replicated_calls", "replicated_bytes", "roofline",
-            "subprocess_s") + (("flip_rule_registered",)
-                               if "flip_rule_registered" in cell else ())}
+            "subprocess_s", "view_rule_registered") + (
+                ("flip_rule_registered",)
+                if "flip_rule_registered" in cell else ())}
+    # The head views of the production cell shard on every torch (ROADMAP
+    # C.12), and its peak stays near the JAX package's for the same cell.
+    cell = res["dryrun_cell"]
+    views = {k: v for k, v in cell["replicated_calls"].items()
+             if k in ("view", "_unsafe_view")}
+    if views:
+        fail(f"dry-run cell: views run replicated {views}")
+    peak = cell["roofline"]["peak_memory_per_device"]
+    cell["peak_over_reference"] = peak / REF_DRYRUN_PEAK
+    cell["collectives_over_reference"] = \
+        cell["roofline"]["collective_bytes"] / REF_DRYRUN_COLLECTIVES
+    if peak > 1.5 * REF_DRYRUN_PEAK:
+        fail(f"dry-run cell: peak {peak} B a device, over 1.5x the "
+             f"reference's {REF_DRYRUN_PEAK}")
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -3031,6 +3102,147 @@ def engines_phase(n_keys: int, seed: int, workdir: str,
     return res
 
 
+SCRUB_KEYS = 1 << 14            # phase 15: 16 MiB of 1 KiB values
+SCRUB_PASSES = 5
+CHURN_KEYS = 64                 # rewritten each churn round, as in the test
+# A pause between churn rounds: at 1 KiB values an unpaced churn outgrows
+# relocation, and each pass walks a longer WAL (2^16 keys in 4 MiB
+# segments: 17 segments at the first pass, 126 at the fifth, 213 s racing
+# on the H100's host).
+CHURN_PAUSE_S = 0.002
+SCRUB_SEGMENT = 1 << 20         # 1 MiB WAL segments: ~1000 records each,
+                                # so relocation drops one every ~16 rounds
+
+
+def scrub_race_phase(n_keys: int, seed: int, workdir: str,
+                     device: str = "cuda") -> dict:
+    """Phase 15: the scrubber racing writes and pruning (ROADMAP C.14) on
+    phase 3's layout (``TideDB(device)``, 256 cells, 32-byte keys, 1 KiB
+    values) in WAL segments of ``SCRUB_SEGMENT`` (phase 3: 4 MiB).  ``n_keys`` are put, flushed and the
+    store reopened (cells unloaded).  A thread then rewrites the first
+    ``CHURN_KEYS`` keys and runs ``prune_step(PruneOptions(
+    batch_records=64))`` in a loop (``tests/test_torch_faults.py``'s race,
+    paced by ``CHURN_PAUSE_S``),
+    whose relocation passes move the watermark and drop whole segments,
+    while this thread runs ``SCRUB_PASSES`` ``scrub()`` passes.  After
+    each pass every key the churn does not touch is read back with
+    ``multi_get`` and ``multi_exists`` (with as many absent keys) through
+    ``use_kernel=True``, the index flushed and the value and parsed-index
+    caches dropped first, so that B and C launch; after the churn stops,
+    the churned keys too.
+    It fails unless every pass reports no corruption, the quarantine stays
+    empty, no CRC failure is counted and every answer is what was last
+    written."""
+    import threading
+
+    import torch
+    from repro_torch.core.tidestore import (DbConfig, KeyspaceConfig,
+                                            PruneOptions, ReadOptions,
+                                            TideDB)
+    from repro_torch.core.tidestore.wal import WalConfig
+    rep = 1024 // 32
+    tag = b"tidehunter-scrub-%d:" % seed
+    keys = make_keys(n_keys, tag)
+    absent = make_keys(n_keys - CHURN_KEYS, tag + b"absent")
+    churned, still = keys[:CHURN_KEYS], keys[CHURN_KEYS:]
+    cfg = DbConfig(keyspaces=[KeyspaceConfig("kv", n_cells=256)],
+                   wal=WalConfig(segment_size=SCRUB_SEGMENT), device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    opts = ReadOptions(use_kernel=True)
+    t_start = time.perf_counter()
+    db = TideDB(workdir, cfg)
+    for i in range(0, n_keys, BATCH):
+        db.put_many([(k, k * rep) for k in keys[i:i + BATCH]], keyspace="kv")
+    db.flush()
+    db.close()
+    db = TideDB(workdir, cfg)
+    last = {k: k * rep for k in churned}
+    stop, errs, rounds = threading.Event(), [], [0]
+
+    def churn():
+        try:
+            while not stop.is_set():
+                i = rounds[0]
+                batch = [(k, (k[:28] + i.to_bytes(4, "little")) * rep)
+                         for k in churned]
+                db.put_many(batch, keyspace="kv")
+                last.update(batch)
+                db.prune_step(PruneOptions(batch_records=64))
+                rounds[0] += 1
+                stop.wait(CHURN_PAUSE_S)
+        except Exception as e:      # reported below, and the phase fails
+            errs.append(e)
+
+    def read_back(ks, want_vals):
+        # Relocation's index updates sit in the cells' dirty buffers, which
+        # answer without the kernels: flush them to the on-disk index.
+        db.flush()
+        db.cache.clear()
+        db.table.blob_cache.clear()
+        got = db.multi_get(ks, keyspace="kv", opts=opts)
+        sync()
+        if got != want_vals:
+            bad = sum(g != w for g, w in zip(got, want_vals))
+            fail(f"scrub race: multi_get returned {bad} wrong values")
+        db.cache.clear()               # multi_get filled it
+        db.table.blob_cache.clear()
+        probe = ks + absent[:len(ks)]
+        got = db.multi_exists(probe, keyspace="kv", opts=opts)
+        sync()
+        if got != [True] * len(ks) + [False] * (len(probe) - len(ks)):
+            fail("scrub race: multi_exists answers differ from what was "
+                 "written")
+        return len(ks) + len(probe)
+
+    res = {"keys": n_keys, "churn_keys": CHURN_KEYS, "passes": [],
+           "read_backs": 0}
+    wal = db.value_wal
+    reset_launches()
+    before = _dispatches()
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=churn, name="scrub-race-churn")
+    worker.start()
+    try:
+        for _ in range(SCRUB_PASSES):
+            segs = db.scrubber._sealed_segments()
+            t_pass = time.perf_counter()
+            report = db.scrub()
+            gone = sum(wal.segment_missing(s) for s in segs)
+            res["passes"].append({
+                "segments": len(segs), "dropped_mid_pass": gone,
+                "records_checked": report["records_checked"],
+                "corruptions": report["corruptions"],
+                "findings": len(report["findings"]),
+                "quarantined": len(wal.quarantined()),
+                "s": time.perf_counter() - t_pass})
+            if report["corruptions"] or report["findings"] or \
+                    wal.quarantined():
+                fail(f"scrub race: pass {len(res['passes'])} reported "
+                     f"{report['findings'][:4]} and quarantined "
+                     f"{sorted(wal.quarantined())[:4]}")
+            res["read_backs"] += read_back(still, [k * rep for k in still])
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    if errs:
+        fail(f"scrub race: the churn thread raised {errs[0]!r}")
+    res["read_backs"] += read_back(churned, [last[k] for k in churned])
+    res["launches"] = read_launches()
+    res["dispatches"] = {k: v - before[k] for k, v in _dispatches().items()}
+    res["race_s"] = time.perf_counter() - t0
+    res["churn_rounds"] = rounds[0]
+    res["segments_dropped_mid_pass"] = sum(
+        p["dropped_mid_pass"] for p in res["passes"])
+    m = db.metrics
+    res.update(crc_failures=m.crc_failures, segments_deleted=
+               m.segments_deleted, scrub_passes=m.scrub_passes)
+    if m.crc_failures or wal.quarantined():
+        fail(f"scrub race: {m.crc_failures} CRC failures counted")
+    db.close()
+    res["phase_s"] = time.perf_counter() - t_start
+    return res
+
+
 def profile_reads(db, probe, gkeys) -> dict:
     """Warm read passes: one under torch.profiler (wall time, the device
     time of every kernel and copy, their sum, and the kernels launched, by
@@ -3218,6 +3430,27 @@ def main() -> None:
         if engines["launches"][name] < 1:
             fail(f"the engine comparison's TideDB never launched {name}")
 
+    workdir = tempfile.mkdtemp(prefix="scrub-race-", dir=ROOT / "build")
+    try:
+        race = scrub_race_phase(min(args.keys, SCRUB_KEYS), args.seed,
+                                workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say(f"scrub race [{card}]: {json.dumps(race)}")
+    say(f"scrub race [{card}]: {len(race['passes'])} scrub passes over "
+        f"{race['keys']} keys x 1 KiB racing {race['churn_rounds']} rounds "
+        f"of put_many({race['churn_keys']}) + prune_step: corruptions "
+        f"{[p['corruptions'] for p in race['passes']]}, quarantined "
+        f"{[p['quarantined'] for p in race['passes']]}, segments dropped "
+        f"mid-pass {[p['dropped_mid_pass'] for p in race['passes']]}, "
+        f"{race['read_backs']} read-backs equal, B "
+        f"{race['launches']['bloom_check_ragged']} and C "
+        f"{race['launches']['optimistic_lookup_resolve']} launches, "
+        f"{race['race_s']:.1f} s racing, {race['phase_s']:.1f} s in all")
+    for name in ("bloom_check_ragged", "optimistic_lookup_resolve"):
+        if race["launches"][name] < 1:
+            fail(f"the scrub race's read-backs never launched {name}")
+
     served = serve_phase(args.seed)
     say(f"serving path [{card}]: {json.dumps(served)}")
     say(f"serving path [{card}]: {served['arch']}, {served['requests']} "
@@ -3326,7 +3559,21 @@ def main() -> None:
         f"peak {rf['peak_memory_per_device']:.4e} B a device, "
         f"collectives {rf['collective_bytes']:.4e} B, calls run "
         f"replicated {scaleout['dryrun_cell']['replicated_calls']} "
-        f"gathering {scaleout['dryrun_cell']['replicated_bytes']} B")
+        f"gathering {scaleout['dryrun_cell']['replicated_bytes']} B; "
+        f"peak {scaleout['dryrun_cell']['peak_over_reference']:.4f}x and "
+        f"collectives "
+        f"{scaleout['dryrun_cell']['collectives_over_reference']:.4f}x the "
+        f"reference's ({REF_DRYRUN_PEAK} B, {REF_DRYRUN_COLLECTIVES} B); "
+        f"view rule registered by the dry run "
+        f"{scaleout['dryrun_cell']['view_rule_registered']}")
+    for key in ("dryrun_mamba2", "dryrun_mamba2_multi"):
+        c = scaleout[key]
+        say(f"dry-run cell: {c['arch']} x {c['shape']} x {c['mesh']}: "
+            f"peak {c['roofline']['peak_memory_per_device']:.10e} B a "
+            f"device, collectives {c['roofline']['collective_bytes']:.10e} "
+            f"B, calls run replicated {c['replicated_calls']} gathering "
+            f"{c['replicated_bytes']} B, view rule registered "
+            f"{c['view_rule_registered']}, {c['subprocess_s']:.1f} s")
     m2 = scaleout["dryrun_mamba2_smoke"]
     say(f"dry-run cell: {m2['arch']} SMOKE x {m2['shape']} x {m2['mesh']}: "
         f"{m2['status']}, flip rule registered by the dry run "
@@ -3338,6 +3585,7 @@ def main() -> None:
     by_path = {"storage": path["launches"],
                "sharded-server": sharded["launches"],
                "engine-comparison": engines["launches"],
+               "scrub-race": race["launches"],
                "llama3-8b": served["launches"],
                "mamba2-1.3b": mamba["launches"],
                "recurrentgemma-9b": griffin["launches"],

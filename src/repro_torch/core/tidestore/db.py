@@ -800,6 +800,35 @@ class TideDB:
                                  pos_live=self.value_wal.pos_live)
 
     # -------------------------------------------------------- batched reads
+    def _live_positions(self, ks_id: int, keys, opts: ReadOptions,
+                        min_live: int) -> list:
+        """``get_positions_batch``, then again for the keys whose position
+        died while the batch ran, until none moves.  Relocation CASes a
+        key's index entry to its new copy before it advances the watermark
+        past the old one, so a position found dead after resolution either
+        moved (the index holds the new one) or was pruned (it still holds
+        the dead one, which the caller skips).  Without this a batch racing
+        a pruning slice answered absent for keys it had only relocated.
+        (The JAX package's batched reads resolve once.)"""
+        live = self.value_wal.pos_live
+        use_kernel = self._use_kernel(opts)
+
+        def dead(m) -> bool:
+            return m is not None and not is_tombstone(m) and (
+                real_pos(m) < min_live or not live(real_pos(m)))
+
+        markers = self.table.get_positions_batch(ks_id, keys,
+                                                 use_kernel=use_kernel)
+        todo = [j for j, m in enumerate(markers) if dead(m)]
+        while todo:
+            again = self.table.get_positions_batch(
+                ks_id, [keys[j] for j in todo], use_kernel=use_kernel)
+            moved = [j for j, m in zip(todo, again) if m != markers[j]]
+            for j, m in zip(todo, again):
+                markers[j] = m
+            todo = [j for j in moved if dead(markers[j])]
+        return markers
+
     def multi_get(self, keys, keyspace=0,
                   opts: Optional[ReadOptions] = None) -> list:
         """Batched point lookups (§3.2, batched): resolve a whole batch of
@@ -834,9 +863,8 @@ class TideDB:
                          cache_misses=len(miss_idx))
         if not miss_idx:
             return results
-        markers = self.table.get_positions_batch(
-            ks_id, [keys[i] for i in miss_idx],
-            use_kernel=self._use_kernel(opts))
+        markers = self._live_positions(ks_id, [keys[i] for i in miss_idx],
+                                       opts, min_live)
         want: dict[int, list[int]] = {}
         for i, marker in zip(miss_idx, markers):
             if marker is None or is_tombstone(marker):
@@ -906,10 +934,9 @@ class TideDB:
         self.metrics.add(cache_hits=len(keys) - len(miss_idx))
         if not miss_idx:
             return results
-        markers = self.table.get_positions_batch(
-            ks_id, [keys[i] for i in miss_idx],
-            use_kernel=self._use_kernel(opts))
         min_live = self._min_live(opts)
+        markers = self._live_positions(ks_id, [keys[i] for i in miss_idx],
+                                       opts, min_live)
         pos_live = self.value_wal.pos_live
         for i, marker in zip(miss_idx, markers):
             results[i] = (marker is not None and not is_tombstone(marker)

@@ -83,7 +83,12 @@ class RepairController:
                   "unrepaired": 0, "skipped": 0}
         with self._lock:
             for sid, sh in enumerate(self.sdb.shards):
-                positions = sorted(sh.value_wal.quarantined())
+                wal = sh.value_wal
+                # An entry of a segment dropped since it was quarantined is
+                # moot (no reader reaches it; GC prunes it): nothing to fetch.
+                positions = sorted(
+                    p for p in wal.quarantined()
+                    if not wal.segment_missing(p // wal.cfg.segment_size))
                 if limit is not None:
                     positions = positions[:max(0, limit
                                                - totals["examined"])]

@@ -14,6 +14,16 @@ is cheap enough for ``KvBatchServer`` idle ticks, and ``ScrubThread`` is
 the standalone background loop.  Scrubbing is read-only with respect to
 user data; it races safely with foreground writes, flushes, relocation,
 and pruning (a segment dropped mid-pass is simply skipped).
+
+The skip is a rule, checked wherever a walk would record a finding: a
+pruning slice can drop the segment between the header read and the payload
+read of one record, and the payload read then comes back short (the file is
+gone) or, through a retired descriptor, holds other bytes.  So before any
+finding is recorded the scrubber asks ``Wal.segment_missing``; if the
+segment is gone by then, the walk of that segment stops with no finding and
+no quarantine, and the records already verified still count.  A short or
+mismatched read of a segment that still exists is reported and quarantined
+as before.  (The JAX package records such a read as ``"crc"``.)
 """
 from __future__ import annotations
 
@@ -85,7 +95,8 @@ class Scrubber:
         (records_checked, findings).  Torn records in a *sealed* segment
         are poison headers from a failed copy — already acknowledged as
         failed, but reported so operators can see the scar tissue; CRC
-        mismatches on full-length payloads are latent corruption."""
+        mismatches on full-length payloads are latent corruption.  A
+        segment dropped under the walk ends it without a finding."""
         wal = self.db.value_wal
         seg_size = wal.cfg.segment_size
         pos = seg * seg_size
@@ -93,14 +104,21 @@ class Scrubber:
         checked = 0
         findings: list[dict] = []
         repaired = wal.repaired()
+
+        def found(kind: str, **extra) -> None:
+            """A finding at ``pos``, unless the segment was dropped since
+            its bytes were read."""
+            if not wal.segment_missing(seg):
+                findings.append({"pos": pos, "segment": seg, "kind": kind,
+                                 **extra})
+
         while pos < end:
             if end - pos < HEADER_SIZE:
                 break
             try:
                 hdr = wal._pread_raw(pos, HEADER_SIZE)
             except OSError as e:
-                findings.append({"pos": pos, "segment": seg, "kind": "io",
-                                 "detail": str(e)})
+                found("io", detail=str(e))
                 break
             if len(hdr) < HEADER_SIZE:
                 break                      # segment dropped mid-pass
@@ -109,21 +127,20 @@ class Scrubber:
                 break
             if rtype > T_FILTER:
                 # Garbage header: length can't be trusted, stop the walk.
-                findings.append({"pos": pos, "segment": seg,
-                                 "kind": "header"})
+                found("header")
                 break
             nxt = pos + HEADER_SIZE + length
             if nxt > end:
-                findings.append({"pos": pos, "segment": seg, "kind": "torn"})
+                found("torn")
                 break
             try:
                 payload = wal._pread_raw(pos + HEADER_SIZE, length)
             except OSError as e:
-                findings.append({"pos": pos, "segment": seg, "kind": "io",
-                                 "detail": str(e)})
+                found("io", detail=str(e))
                 break
-            checked += 1
             if len(payload) < length or crc32(payload) != crc:
+                if wal.segment_missing(seg):
+                    break                  # dropped between the two reads
                 if pos not in repaired:
                     # Repaired carcasses stay corrupt on disk until segment
                     # GC reclaims them; re-reporting (or re-quarantining)
@@ -132,6 +149,7 @@ class Scrubber:
                     findings.append({"pos": pos, "segment": seg,
                                      "kind": "crc"})
                     wal._quarantine_pos(pos)
+            checked += 1
             pos = nxt
         return checked, findings
 

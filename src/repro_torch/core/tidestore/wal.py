@@ -867,6 +867,10 @@ class Wal:
 
     def _quarantine_pos(self, pos: int) -> None:
         with self._quarantine_lock:
+            if self.segment_missing(pos // self.cfg.segment_size):
+                # Dropped or GC'd under the reader: its bytes are gone, not
+                # corrupt, and the next GC would prune the entry anyway.
+                return
             if pos in self._repaired:
                 # Already repaired: the index no longer references these
                 # bytes (a healthy copy sits at a later position), so a

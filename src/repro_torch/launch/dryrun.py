@@ -28,7 +28,10 @@ the production ``DeviceMesh`` over it.  Each cell then:
    record counts those ops, ``replicated_calls``, and the bytes they
    gathered, ``replicated_bytes``), an in-place cache write runs on the
    local shards, and any other op fails the cell.  A torch whose DTensor
-   has no rule for ``aten.flip`` gets the dry run's (``_flip_strategy``).
+   has no rule for ``aten.flip`` gets the dry run's (``_flip_strategy``),
+   and one whose view rule predates ``_StridedShard`` gets the dry run's
+   view rule (``_view_strategy``: a head split it refuses moves onto the
+   batch, split further, instead of running replicated).
 
 Peak memory per device is the local shard bytes of the step's arguments
 plus the high-water mark of the bytes allocated and not yet freed during
@@ -278,13 +281,156 @@ def _ensure_flip_rule() -> bool:
     return True
 
 
+# The running torch's own strategies for the views, kept when the dry run
+# registers ``_view_strategy`` over them.
+_NATIVE_VIEW: dict = {}
+
+
+def _native_view(op):
+    """The running torch's DTensor strategy function for ``op``."""
+    if op not in _NATIVE_VIEW:
+        from torch.distributed.tensor import DTensor
+        prop = DTensor._op_dispatcher.sharding_propagator
+        _NATIVE_VIEW[op] = prop.op_strategy_funcs[op]
+    return _NATIVE_VIEW[op]
+
+
+def _view_strategy(op_schema):
+    """DTensor strategy for ``aten.view`` / ``_unsafe_view`` where the
+    running torch's rule refuses a split or flatten of a dim sharded over
+    a mesh dim (8 KV heads packed in a dim split over a 16-wide model axis,
+    viewed as heads x head_dim: its rule places no output, on 2.11 and
+    2.13 alike).  Each such mesh dim, innermost first, moves its shard to
+    a dim that every outer mesh dim already splits and that it divides
+    further: the batch split over the whole mesh, as 2.13's rules place
+    the attention (an all-to-all, where running the view replicated
+    gathers the dim); the first such dim for which the torch's own rule
+    then accepts the view, whose output for the moved input it takes.
+    Where no move is accepted, the refusal stands, and ``_DTensorGaps``
+    runs the view replicated: a batch too small to split further, or one
+    an outer mesh dim leaves whole (on 2.11 mamba2-1.3b x train_4k x 2 x
+    16 x 16's batch placed ``(S(0), R, S(0))`` met a residual
+    ``(S(0), S(0), P)`` in an add, which asked an ``S(0)`` to ``P(sum)``
+    redistribution 2.11 cannot run)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
+                                                     OpStrategy)
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+    native = _native_view(op_schema.op)
+    try:
+        return native(op_schema)
+    except (RuntimeError, AssertionError) as e:
+        refused = e
+    inp = op_schema.args_schema[0]
+    rest = op_schema.args_schema[1:]
+
+    def rule(spec):
+        """The torch's own strategy for ``spec`` alone, or None."""
+        try:
+            return native(OpSchema(op_schema.op,
+                                   (OpStrategy([OpSpec(spec)]),) + rest,
+                                   op_schema.kwargs_schema))
+        except (RuntimeError, AssertionError):
+            return None
+
+    out = OpStrategy([])
+    for strategy in inp.strategies:
+        spec = strategy.output_spec
+        mesh, shape = spec.mesh, spec.shape
+
+        def spec_of(placements):
+            return DTensorSpec(mesh, tuple(placements),
+                               tensor_meta=spec.tensor_meta)
+
+        moved, got = list(spec.placements), None
+        for i in reversed(range(mesh.ndim)):
+            p = moved[i]
+            if type(p) is not Shard:
+                continue
+            fits = [d for d in range(len(shape)) if i and d != p.dim
+                    and all(type(q) is Shard and q.dim == d
+                            for q in moved[:i])
+                    and shape[d] % math.prod(mesh.shape[:i + 1]) == 0]
+            trials = [moved[:i] + [Shard(d)] + moved[i + 1:] for d in fits]
+            got = next((r for r in map(rule, map(spec_of, trials))
+                        if r is not None), None)
+            if got is not None:
+                break
+            if fits:
+                moved = trials[0]
+        if got is None:
+            raise refused
+        for choice in got.strategies:
+            choice.redistribute_cost = [
+                generate_redistribute_costs(inp, choice.input_specs[0])]
+            out.strategies.append(choice)
+    return out
+
+
+_VIEW_OPS = ("view", "_unsafe_view")
+
+
+def _view_rule_places_strided(mesh) -> bool:
+    """Whether the running torch's view rule flattens a dim split over a
+    mesh dim into the dim before it (2.13 places it as ``_StridedShard``;
+    2.11 refuses).  A mesh with no dim of 2 or more answers True."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
+                                                     OpStrategy)
+    wide = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    if not wide:
+        return True
+    n, view = mesh.size(wide[0]), torch.ops.aten.view.default
+    placements = [Replicate()] * mesh.ndim
+    placements[wide[0]] = Shard(2)
+    shape = (2, n, n)
+    spec = DTensorSpec(mesh, tuple(placements), tensor_meta=TensorMeta(
+        torch.Size(shape), torch.empty(shape, device="meta").stride(),
+        torch.float32))
+    try:
+        _native_view(view)(OpSchema(view, (OpStrategy([OpSpec(spec)]),
+                                           [2, n * n]), {}))
+    except (RuntimeError, AssertionError):
+        return False
+    return True
+
+
+def _ensure_view_rule(mesh) -> bool:
+    """Register ``_view_strategy`` for ``aten.view`` and ``_unsafe_view``
+    if the running torch's view rule predates ``_StridedShard``
+    (``_view_rule_places_strided``: 2.11) → whether it registered it.  On
+    such a torch DTensor's matrix rules keep the hidden dim whole and split
+    the projections' heads, so the attention's head views reach the splits
+    its view rule refuses; on 2.13 they do not (the production cell runs
+    no view replicated), and its rule stays as it is."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ops = [getattr(torch.ops.aten, name).default for name in _VIEW_OPS]
+    if prop.op_strategy_funcs.get(ops[0]) is _view_strategy or \
+            _view_rule_places_strided(mesh):
+        return False
+    for op in ops:
+        _native_view(op)
+        prop.register_op_strategy(op, _view_strategy, RuntimeSchemaInfo(1))
+    return True
+
+
 def _sharded_run(step, args):
     """Run ``step`` on DTensor arguments under ``ShardedTrace``; plain
     tensors the step makes itself count as replicated → (the trace, the
     ops run again on replicated inputs by name: their count, and the bytes
     a device holds of the inputs they gathered)."""
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
     _ensure_flip_rule()
+    mesh = next((t.device_mesh for t in leaves(list(args))
+                 if isinstance(t, DTensor)), None)
+    if mesh is not None:
+        _ensure_view_rule(mesh)
     trace, gaps = roofline.ShardedTrace(), _DTensorGaps()
     with implicit_replication(), trace, gaps:
         out = step(*args)

@@ -8,6 +8,7 @@ tensors."""
 import dataclasses
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -303,6 +304,145 @@ def test_mamba2_cell_runs_on_the_dry_runs_flip_rule(mesh, monkeypatch):
         clear_caches()
     assert calls
     assert entry["status"] == "ok" and entry["replicated_calls"] == {}
+
+
+# ------------------------------------------------------------ view rule
+# The attention's head views on a ("data", "model") mesh of 2 x 16, as the
+# production cell (qwen3-0.6b: 16 query heads, 8 KV heads of 128) gives
+# them on a torch whose matrix rules split the projections' heads over the
+# model axis: k's 8 packed heads (8 do not divide 16), q's 16 heads
+# regrouped as 8 x 2 KV groups, and q's 16 heads unpacked (they divide).
+_HEAD_VIEWS = [((32, 2, 1024), (32, 2, 8, 128), False),
+               ((32, 2, 16, 128), (32, 2, 8, 2, 128), False),
+               ((32, 2, 2048), (32, 2, 16, 128), True)]
+
+
+def _wide_mesh():
+    """A 2 x 16 mesh for strategies alone (no group behind it)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cpu", torch.arange(32).view(2, 16),
+                      mesh_dim_names=("data", "model"), _init_backend=False)
+
+
+def _view_schema(mesh, shape, placements, target, strategy: bool):
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
+                                                     OpStrategy)
+    meta = TensorMeta(torch.Size(shape),
+                      torch.empty(shape, device="meta").stride(),
+                      torch.float32)
+    spec = DTensorSpec(mesh, tuple(placements), tensor_meta=meta)
+    arg = OpStrategy([OpSpec(spec)]) if strategy else spec
+    return OpSchema(torch.ops.aten.view.default, (arg, list(target)), {})
+
+
+def _local(t, placements, coord, mesh_shape):
+    """Device ``coord``'s shard of ``t`` under plain ``Shard`` and
+    ``Replicate`` placements, mesh dims in order (DTensor's even chunks)."""
+    from torch.distributed.tensor import Replicate, Shard
+    for p, c, n in zip(placements, coord, mesh_shape):
+        if isinstance(p, Shard):
+            assert type(p) is Shard and t.shape[p.dim] % n == 0
+            t = t.chunk(n, dim=p.dim)[c]
+        else:
+            assert isinstance(p, Replicate)
+    return t
+
+
+@pytest.mark.parametrize("shape,target,divides", _HEAD_VIEWS)
+def test_view_rule_gives_the_native_rules_placements(mesh, shape, target,
+                                                     divides):
+    """The dry run's view strategy, called directly on a ``Shard(-1)`` over
+    the 16-wide model axis: where this torch's own rule places the view
+    (the heads divide the axis) it gives the same input and output
+    placements at no cost; where that rule refuses it too (this torch
+    places no split of 8 heads over 16 devices), the shard moves to the
+    batch dim, and the output is this torch's own rule's for that input.
+    Either way every device's output shard is its input shard viewed."""
+    import itertools
+
+    from torch.distributed.tensor import DTensor, Shard
+    prop = DTensor._op_dispatcher.sharding_propagator
+    wide = _wide_mesh()
+    given = (Shard(0), Shard(2))
+    (choice,) = dryrun._view_strategy(
+        _view_schema(wide, shape, given, target, True)).strategies
+    moved = tuple(choice.input_specs[0].placements)
+    out = tuple(choice.output_spec.placements)
+    if divides:
+        native = prop.propagate_op_sharding(
+            _view_schema(wide, shape, given, target, False))
+        assert moved == given and choice.redistribute_cost == [[0.0]]
+    else:
+        with pytest.raises(RuntimeError):
+            prop.propagate_op_sharding(
+                _view_schema(wide, shape, given, target, False))
+        native = prop.propagate_op_sharding(
+            _view_schema(wide, shape, moved, target, False))
+        assert moved == (Shard(0), Shard(0))
+        assert choice.redistribute_cost[0][0] > 0
+    assert out == tuple(native.output_spec.placements)
+    whole = torch.arange(math.prod(shape), dtype=torch.int32)
+    for coord in itertools.product(*map(range, wide.shape)):
+        mine = _local(whole.view(shape), moved, coord, wide.shape)
+        want = _local(whole.view(target), out, coord, wide.shape)
+        assert torch.equal(mine.reshape(want.shape), want), coord
+
+
+def test_view_rule_moves_a_shard_only_onto_a_split_dim(mesh):
+    """A batch of 4 over the 2-wide data axis leaves 2 rows a device, which
+    16 does not divide: the rule does not move the model axis's shard onto
+    the sequence (no mesh dim splits it), and the refusal stands, so the
+    dry run gathers the view."""
+    from torch.distributed.tensor import Shard
+    with pytest.raises(RuntimeError):
+        dryrun._view_strategy(_view_schema(
+            _wide_mesh(), (4, 32, 1024), (Shard(0), Shard(2)),
+            (4, 32, 8, 128), True))
+
+
+def test_kv_head_view_runs_on_the_dry_runs_view_rule(mesh, monkeypatch):
+    """This torch's view rule places a split head dim as ``_StridedShard``:
+    the dry run keeps it.  As on a torch whose rule refuses that (2.11,
+    stood in for by the probe answering so), it registers its own rule
+    once, and a projection to 3 KV heads of 2 (the model axis is 2 wide)
+    viewed as heads runs with nothing replicated: its output split over
+    both axes on the batch dim, one collective moving the shard there,
+    where this torch's own rule runs the view replicated."""
+    from torch.distributed.tensor import DTensor, Shard
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ops = [getattr(torch.ops.aten, n).default for n in dryrun._VIEW_OPS]
+    x = _dt(mesh, (8, 4, 4), ("data",))
+    w = _dt(mesh, (4, 6), (None, "model"))
+    outs = []
+
+    def step(a, b):
+        outs.append((a @ b).view(8, 4, 3, 2))
+        return outs[-1] * 2
+
+    assert dryrun._view_rule_places_strided(mesh)
+    assert not dryrun._ensure_view_rule(mesh)
+    _, replicated, _ = dryrun._sharded_run(step, [x, w])
+    assert replicated == {"view": 1}
+
+    def clear_caches():
+        prop.propagate_op_sharding.cache.cache_clear()
+        getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                lambda: None)()
+
+    monkeypatch.setattr(dryrun, "_view_rule_places_strided", lambda m: False)
+    try:
+        assert dryrun._ensure_view_rule(mesh)
+        assert not dryrun._ensure_view_rule(mesh)
+        trace, replicated, _ = dryrun._sharded_run(step, [x, w])
+    finally:
+        for op in ops:
+            prop.op_strategy_funcs[op] = dryrun._NATIVE_VIEW[op]
+        clear_caches()
+    assert replicated == {}
+    assert sum(trace.stats.count_by_kind.values()) >= 1
+    assert tuple(outs[-1].placements) == (Shard(0), Shard(0))
+    assert tuple(outs[-1].to_local().shape) == (2, 4, 3, 2)
 
 
 # Last: they replace the fake group of the fixture by one of 256 ranks.
