@@ -163,12 +163,14 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    process group of 256 ranks, mamba2-1.3b's SMOKE train cell on a fake
    (2, 2) mesh (its SSD's cumsums flip in the backward, for which this
    torch's DTensor may lack a rule: the dry run then registers its own),
-   and mamba2-1.3b x train_4k on 16 x 16 and 2 x 16 x 16, each in a
-   subprocess, all at once: status ``ok``, no op run replicated but those
-   ``dryrun.REPLICABLE`` names, each with the bytes it gathered; in the
-   qwen3 cell no view (a torch whose view rule predates
-   ``_StridedShard`` gets the dry run's) and a peak a device at most
-   1.5x the JAX package's for the same cell.
+   mamba2-1.3b x train_4k on 16 x 16 and 2 x 16 x 16, and qwen3-0.6b x
+   train_4k on 2 x 16 x 16, each in a subprocess, all at once: status
+   ``ok``, no op run replicated but those ``dryrun.REPLICABLE`` names,
+   each with the bytes it gathered; in the one-pod qwen3 cell no view
+   (every torch gets the dry run's view rule) and a peak a device at most
+   1.5x the JAX package's for the same cell; the two-pod cells' peaks
+   and collectives beside the JAX package's on that mesh, mamba2-1.3b's
+   peak at most 1.5x it and qwen3-0.6b's at most 5x (ROADMAP C.12).
 14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
    3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
    ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
@@ -2228,6 +2230,17 @@ def _roofline_line(name, cfg, cost, n_tokens, kind, ms, peak) -> dict:
 # phase 13 (f)'s cell is held against.
 REF_DRYRUN_PEAK = 1.9099226936e10
 REF_DRYRUN_COLLECTIVES = 7.4970554408e10
+# The same on the 2 x 16 x 16 mesh: ``python -m repro.launch.dryrun --arch
+# <arch> --shape train_4k --mesh multi`` on the CPU (peak bytes a device,
+# collective bytes), for the two-pod cells of phase 13 (f).
+REF_DRYRUN_MULTI = {"qwen3-0.6b": (9.652081464e9, 3.7579382824e10),
+                    "mamba2-1.3b": (4.0878689856e10, 5.6008665388e10)}
+# Phase 13 (f)'s bound on a two-pod cell's peak over the reference's:
+# mamba2-1.3b's is 1.5x, as the one-pod cell's; qwen3-0.6b's KV-head views
+# still run replicated over the model axis there (its batch of 8 rows a
+# device row cannot take the 16-wide axis: ROADMAP C.12), so its bound
+# only guards the batch split over pod and data (54x before it was kept).
+MULTI_PEAK_BOUND = {"qwen3-0.6b": 5.0, "mamba2-1.3b": 1.5}
 
 
 def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool) -> str:
@@ -2236,9 +2249,8 @@ def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool) -> str:
     the SMOKE config's cell of kind ``shape`` (4 x 64 tokens) on a fake
     (2, 2) mesh of 4 ranks, as the CPU tests run it, whose record says
     whether the dry run registered its own ``flip`` rule
-    (``flip_rule_registered``).  Each record says whether it registered
-    its own view rule (``view_rule_registered``: on a torch whose view
-    rule predates ``_StridedShard``)."""
+    (``flip_rule_registered``).  Each record says whether the dry run's
+    view rule was in place (``view_rule_registered``: on every torch)."""
     if smoke:
         cell = ("from torch.distributed.device_mesh import "
                 "init_device_mesh\n"
@@ -2481,13 +2493,15 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
 
     # (f) the dry-run cells: qwen3-0.6b x train_4k on the fake 256-rank
     # group, mamba2-1.3b's SMOKE train cell on a fake (2, 2) mesh (its
-    # cumsum's backward flips), and mamba2-1.3b x train_4k on 16 x 16 and
-    # 2 x 16 x 16 (its SSD's head views, ROADMAP C.12)
+    # cumsum's backward flips), mamba2-1.3b x train_4k on 16 x 16, and
+    # both train_4k cells on 2 x 16 x 16 (the batch split over pod and
+    # data, the head views: ROADMAP C.12)
     cells = dryrun_cells({
         "dryrun_cell": ("qwen3-0.6b", "train_4k", False, False),
         "dryrun_mamba2_smoke": ("mamba2-1.3b", "train", False, True),
         "dryrun_mamba2": ("mamba2-1.3b", "train_4k", False, False),
-        "dryrun_mamba2_multi": ("mamba2-1.3b", "train_4k", True, False)})
+        "dryrun_mamba2_multi": ("mamba2-1.3b", "train_4k", True, False),
+        "dryrun_qwen3_multi": ("qwen3-0.6b", "train_4k", True, False)})
     for key, cell in cells.items():
         if cell.get("status") != "ok":
             fail(f"dry-run cell {key}: {cell.get('status')}")
@@ -2516,6 +2530,18 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     if peak > 1.5 * REF_DRYRUN_PEAK:
         fail(f"dry-run cell: peak {peak} B a device, over 1.5x the "
              f"reference's {REF_DRYRUN_PEAK}")
+    # The two-pod train cells against the reference's on the same mesh.
+    for key in ("dryrun_qwen3_multi", "dryrun_mamba2_multi"):
+        cell = res[key]
+        ref_peak, ref_coll = REF_DRYRUN_MULTI[cell["arch"]]
+        peak = cell["roofline"]["peak_memory_per_device"]
+        cell["peak_over_reference"] = peak / ref_peak
+        cell["collectives_over_reference"] = \
+            cell["roofline"]["collective_bytes"] / ref_coll
+        bound = MULTI_PEAK_BOUND[cell["arch"]]
+        if peak > bound * ref_peak:
+            fail(f"dry-run cell {key}: peak {peak} B a device, over "
+                 f"{bound}x the reference's {ref_peak}")
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -3566,14 +3592,21 @@ def main() -> None:
         f"reference's ({REF_DRYRUN_PEAK} B, {REF_DRYRUN_COLLECTIVES} B); "
         f"view rule registered by the dry run "
         f"{scaleout['dryrun_cell']['view_rule_registered']}")
-    for key in ("dryrun_mamba2", "dryrun_mamba2_multi"):
+    for key in ("dryrun_mamba2", "dryrun_mamba2_multi",
+                "dryrun_qwen3_multi"):
         c = scaleout[key]
+        over = (f" ({c['peak_over_reference']:.4f}x and "
+                f"{c['collectives_over_reference']:.4f}x the reference's "
+                f"{REF_DRYRUN_MULTI[c['arch']][0]} B and "
+                f"{REF_DRYRUN_MULTI[c['arch']][1]} B)"
+                if "peak_over_reference" in c else "")
         say(f"dry-run cell: {c['arch']} x {c['shape']} x {c['mesh']}: "
             f"peak {c['roofline']['peak_memory_per_device']:.10e} B a "
             f"device, collectives {c['roofline']['collective_bytes']:.10e} "
-            f"B, calls run replicated {c['replicated_calls']} gathering "
-            f"{c['replicated_bytes']} B, view rule registered "
-            f"{c['view_rule_registered']}, {c['subprocess_s']:.1f} s")
+            f"B{over}, calls run replicated {c['replicated_calls']} "
+            f"gathering {c['replicated_bytes']} B, view rule registered "
+            f"{c['view_rule_registered']}, trace {c['trace_s']} s, "
+            f"{c['subprocess_s']:.1f} s")
     m2 = scaleout["dryrun_mamba2_smoke"]
     say(f"dry-run cell: {m2['arch']} SMOKE x {m2['shape']} x {m2['mesh']}: "
         f"{m2['status']}, flip rule registered by the dry run "

@@ -29,9 +29,26 @@ the production ``DeviceMesh`` over it.  Each cell then:
    gathered, ``replicated_bytes``), an in-place cache write runs on the
    local shards, and any other op fails the cell.  A torch whose DTensor
    has no rule for ``aten.flip`` gets the dry run's (``_flip_strategy``),
-   and one whose view rule predates ``_StridedShard`` gets the dry run's
-   view rule (``_view_strategy``: a head split it refuses moves onto the
-   batch, split further, instead of running replicated).
+   and every torch gets the dry run's view rule (``_view_strategy``: a
+   head split its own rule refuses, or places as ``_StridedShard``, moves
+   onto the batch, split further, instead of running replicated).
+
+The batch stays split over every data axis, as the inputs place it (pod
+and data on the 2 x 16 x 16 mesh).  Two places dropped that split, and
+the dry run repairs each where it happens, not in the specs or the
+models: a gather the torch refuses (2.11's DTensor has no rule for the
+embedding's token ids split over two mesh dims on one dim) ran again on
+ids gathered over data, and came back whole over data, so every
+activation after it was too; ``_split_again`` splits a rerun op's output
+again where its inputs were split (a slice of each device's copy, no
+bytes moved), and the op still counts in ``replicated_calls``.  The
+gradient of the loss's mean, a scalar that DTensor expands replicated,
+met the split batch one mesh dim at a time and held half the batch's
+logits' gradient on each device; ``_DTensorGaps`` places that expand as
+the mean's input was.  The view rule takes no ``_StridedShard``, so that
+2.11 and 2.13 trace the same placements, and because every such
+placement sends 2.13's redistribution costs to its graph planner (a
+two-pod cell took 950 s; now 30-90 s).
 
 Peak memory per device is the local shard bytes of the step's arguments
 plus the high-water mark of the bytes allocated and not yet freed during
@@ -123,13 +140,18 @@ class _DTensorGaps(TorchDispatchMode):
     of the inputs they gathered.  A write named in
     ``LOCAL_WRITES`` (the KV-WAL's appends and prefill writes, a recurrent
     state or cross K/V into its cache slot) runs on the local shards.
-    Any other op fails.  Entered after ``ShardedTrace``, so that it sees
-    each op first and the trace sees what DTensor then runs."""
+    Any other op fails.  A scalar broadcast back to the shape of a
+    whole-tensor reduction (the backward of the loss's mean) is placed as
+    that reduction's input was (``_reduced``).  Entered after
+    ``ShardedTrace``, so that it sees each op first and the trace sees
+    what DTensor then runs."""
 
     def __init__(self):
         super().__init__()
         self.replicated: dict = {}
         self.replicated_bytes: dict = {}
+        # shape -> placements of the last DTensor reduced to a scalar
+        self._reduced: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
@@ -142,15 +164,17 @@ class _DTensorGaps(TorchDispatchMode):
             # DTensor would gather the operands and then refuse the write.
             return _write_local(func, args, kwargs)
         try:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
         except (RuntimeError, ValueError, NotImplementedError,
                 AssertionError):
             if not any(issubclass(t, DTensor) for t in types) or \
                     name not in REPLICABLE | LOCAL_WRITES:
                 raise
+        else:
+            return self._reduced_split(name, args, out)
         if name in LOCAL_WRITES:
             return _write_local(func, args, kwargs)
-        flat = leaves([list(args), kwargs])
+        flat = given = leaves([list(args), kwargs])
         mesh = next(t.device_mesh for t in flat if isinstance(t, DTensor))
         self.replicated[name] = self.replicated.get(name, 0) + 1
         # Replicate the innermost mesh dims first (the model axis, which
@@ -172,7 +196,7 @@ class _DTensorGaps(TorchDispatchMode):
             if keep == 0:
                 break
             try:
-                return func(*a, **kw)
+                return _split_again(func(*a, **kw), given)
             except (RuntimeError, ValueError, NotImplementedError,
                     AssertionError):
                 flat = moved
@@ -181,10 +205,65 @@ class _DTensorGaps(TorchDispatchMode):
             t.to_local().contiguous() if isinstance(t, DTensor) else t
             for t in leaves([a, kw])])
         out = func(*a, **kw)          # every device computes the whole op
-        return unflatten(out, [DTensor.from_local(o, mesh, whole,
-                                                  run_check=False)
-                               if isinstance(o, torch.Tensor) else o
-                               for o in leaves(out)])
+        return _split_again(unflatten(out, [
+            DTensor.from_local(o, mesh, whole, run_check=False)
+            if isinstance(o, torch.Tensor) else o for o in leaves(out)]),
+            given)
+
+    def _reduced_split(self, name, args, out):
+        """``out`` of a reduction to a scalar, recorded; ``out`` of a
+        scalar replicated on every mesh dim expanded to a recorded shape,
+        placed as that shape's reduced input was.  DTensor places such an
+        expand replicated, and the first op that meets the split batch
+        then slices each device's copy one mesh dim at a time: the first
+        slice holds half the batch (mamba2-1.3b x train_4k x 2 x 16 x 16:
+        the loss's gradient over the whole vocabulary, (128, 4096, 50280)
+        in fp32)."""
+        from torch.distributed.tensor import DTensor
+        if name in ("mean", "sum") and isinstance(args[0], DTensor) and \
+                isinstance(out, DTensor) and out.dim() == 0:
+            self._reduced[tuple(args[0].shape)] = tuple(args[0].placements)
+        elif name == "expand" and isinstance(args[0], DTensor) and \
+                args[0].numel() == 1 and \
+                all(p.is_replicate() for p in args[0].placements):
+            want = self._reduced.get(tuple(out.shape))
+            if want is not None and not any(p.is_partial() for p in want):
+                return out.redistribute(out.device_mesh, want)
+        return out
+
+
+def _split_again(out, given):
+    """The outputs of an op ``_DTensorGaps`` ran on replicated inputs, each
+    split again on every mesh dim where it came back replicated but one of
+    ``given`` (the op's inputs as they came) split a dim of the same index
+    and size, placed as the output is on every outer mesh dim: the batch
+    that a gather or a view keeps (the embedding's gather, whose token ids
+    are split over pod and data, comes back whole over data on 2.11).
+    Replicate to Shard is a slice of each device's copy: no bytes move."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def split(o):
+        if not isinstance(o, DTensor):
+            return o
+        want = list(o.placements)
+        for j, p in enumerate(want):
+            if not p.is_replicate():
+                continue
+            for t in given:
+                if not isinstance(t, DTensor) or \
+                        t.device_mesh != o.device_mesh:
+                    continue
+                q = t.placements[j]
+                if type(q) is Shard and q.dim < o.dim() and \
+                        t.shape[q.dim] == o.shape[q.dim] and \
+                        tuple(t.placements[:j]) == tuple(want[:j]):
+                    want[j] = q
+                    break
+        if want == list(o.placements):
+            return o
+        return o.redistribute(o.device_mesh, want)
+
+    return unflatten(out, [split(o) for o in leaves(out)])
 
 
 def _write_local(func, args, kwargs):
@@ -295,23 +374,37 @@ def _native_view(op):
     return _NATIVE_VIEW[op]
 
 
+def _strided(strategy) -> bool:
+    """Whether an ``OpStrategy`` places any output as ``_StridedShard``."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return any(isinstance(p, _StridedShard) for choice in strategy.strategies
+               for p in choice.output_spec.placements)
+
+
 def _view_strategy(op_schema):
-    """DTensor strategy for ``aten.view`` / ``_unsafe_view`` where the
+    """DTensor strategy for ``aten.view`` / ``_unsafe_view``, where the
     running torch's rule refuses a split or flatten of a dim sharded over
-    a mesh dim (8 KV heads packed in a dim split over a 16-wide model axis,
-    viewed as heads x head_dim: its rule places no output, on 2.11 and
-    2.13 alike).  Each such mesh dim, innermost first, moves its shard to
-    a dim that every outer mesh dim already splits and that it divides
-    further: the batch split over the whole mesh, as 2.13's rules place
-    the attention (an all-to-all, where running the view replicated
-    gathers the dim); the first such dim for which the torch's own rule
-    then accepts the view, whose output for the moved input it takes.
-    Where no move is accepted, the refusal stands, and ``_DTensorGaps``
-    runs the view replicated: a batch too small to split further, or one
-    an outer mesh dim leaves whole (on 2.11 mamba2-1.3b x train_4k x 2 x
-    16 x 16's batch placed ``(S(0), R, S(0))`` met a residual
-    ``(S(0), S(0), P)`` in an add, which asked an ``S(0)`` to ``P(sum)``
-    redistribution 2.11 cannot run)."""
+    a mesh dim, or places it as ``_StridedShard``.  Refused: 8 KV heads
+    packed in a dim split over a 16-wide model axis, viewed as heads x
+    head_dim (2.11 and 2.13 alike).  Strided: a flatten of (batch, heads)
+    with the heads split, which 2.11 refuses and 2.13 places as
+    ``_StridedShard``; the dry run takes that as refused too, so that its
+    placements are the same on both torches, and because any
+    ``_StridedShard`` sends 2.13's redistribution costs to its graph
+    planner, a graph search in Python for each candidate strategy of each
+    op (950 s for qwen3-0.6b x train_4k x 2 x 16 x 16 on 2.13).  Each such mesh dim, innermost first, moves
+    its shard to a dim that every outer mesh dim already splits and that
+    it divides further: the batch split over the whole mesh, as 2.13's
+    rules place the attention (an all-to-all, where running the view
+    replicated gathers the dim); the first such dim for which the torch's
+    own rule then places the view with no ``_StridedShard``, whose output
+    for the moved input it takes.  Where no move is accepted, the refusal
+    stands, and ``_DTensorGaps`` runs the view replicated: a batch too
+    small to split further (256 rows over 2 x 16 x 16 devices), or one an
+    outer mesh dim leaves whole (on 2.11 mamba2-1.3b x train_4k x 2 x 16
+    x 16's batch placed ``(S(0), R, S(0))`` met a residual ``(S(0), S(0),
+    P)`` in an add, which asked an ``S(0)`` to ``P(sum)`` redistribution
+    2.11 cannot run)."""
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
     from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
@@ -320,20 +413,26 @@ def _view_strategy(op_schema):
         generate_redistribute_costs
     native = _native_view(op_schema.op)
     try:
-        return native(op_schema)
+        placed = native(op_schema)
+        if not _strided(placed):
+            return placed
+        refused = RuntimeError(f"{op_schema.op}: the dry run places no "
+                               f"_StridedShard")
     except (RuntimeError, AssertionError) as e:
         refused = e
     inp = op_schema.args_schema[0]
     rest = op_schema.args_schema[1:]
 
     def rule(spec):
-        """The torch's own strategy for ``spec`` alone, or None."""
+        """The torch's own strategy for ``spec`` alone, or None (refused,
+        or placed as ``_StridedShard``)."""
         try:
-            return native(OpSchema(op_schema.op,
-                                   (OpStrategy([OpSpec(spec)]),) + rest,
-                                   op_schema.kwargs_schema))
+            got = native(OpSchema(op_schema.op,
+                                  (OpStrategy([OpSpec(spec)]),) + rest,
+                                  op_schema.kwargs_schema))
         except (RuntimeError, AssertionError):
             return None
+        return None if _strided(got) else got
 
     out = OpStrategy([])
     for strategy in inp.strategies:
@@ -372,46 +471,16 @@ def _view_strategy(op_schema):
 _VIEW_OPS = ("view", "_unsafe_view")
 
 
-def _view_rule_places_strided(mesh) -> bool:
-    """Whether the running torch's view rule flattens a dim split over a
-    mesh dim into the dim before it (2.13 places it as ``_StridedShard``;
-    2.11 refuses).  A mesh with no dim of 2 or more answers True."""
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
-    from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
-                                                     OpStrategy)
-    wide = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
-    if not wide:
-        return True
-    n, view = mesh.size(wide[0]), torch.ops.aten.view.default
-    placements = [Replicate()] * mesh.ndim
-    placements[wide[0]] = Shard(2)
-    shape = (2, n, n)
-    spec = DTensorSpec(mesh, tuple(placements), tensor_meta=TensorMeta(
-        torch.Size(shape), torch.empty(shape, device="meta").stride(),
-        torch.float32))
-    try:
-        _native_view(view)(OpSchema(view, (OpStrategy([OpSpec(spec)]),
-                                           [2, n * n]), {}))
-    except (RuntimeError, AssertionError):
-        return False
-    return True
-
-
-def _ensure_view_rule(mesh) -> bool:
+def _ensure_view_rule() -> bool:
     """Register ``_view_strategy`` for ``aten.view`` and ``_unsafe_view``
-    if the running torch's view rule predates ``_StridedShard``
-    (``_view_rule_places_strided``: 2.11) → whether it registered it.  On
-    such a torch DTensor's matrix rules keep the hidden dim whole and split
-    the projections' heads, so the attention's head views reach the splits
-    its view rule refuses; on 2.13 they do not (the production cell runs
-    no view replicated), and its rule stays as it is."""
+    over the running torch's own rule (on every torch: it changes only
+    what that rule refuses or places as ``_StridedShard``) → whether it
+    registered it now."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
     prop = DTensor._op_dispatcher.sharding_propagator
     ops = [getattr(torch.ops.aten, name).default for name in _VIEW_OPS]
-    if prop.op_strategy_funcs.get(ops[0]) is _view_strategy or \
-            _view_rule_places_strided(mesh):
+    if prop.op_strategy_funcs.get(ops[0]) is _view_strategy:
         return False
     for op in ops:
         _native_view(op)
@@ -424,13 +493,9 @@ def _sharded_run(step, args):
     tensors the step makes itself count as replicated → (the trace, the
     ops run again on replicated inputs by name: their count, and the bytes
     a device holds of the inputs they gathered)."""
-    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
     _ensure_flip_rule()
-    mesh = next((t.device_mesh for t in leaves(list(args))
-                 if isinstance(t, DTensor)), None)
-    if mesh is not None:
-        _ensure_view_rule(mesh)
+    _ensure_view_rule()
     trace, gaps = roofline.ShardedTrace(), _DTensorGaps()
     with implicit_replication(), trace, gaps:
         out = step(*args)

@@ -156,15 +156,17 @@ def test_maybe_shard_decode_q(mesh):
 
 def test_a_call_dtensor_cannot_shard_runs_replicated(mesh):
     """A view that splits a sharded dim its shard count does not divide
-    (6 over 2 ranks into 3 x 2) runs again with that dim gathered over the
-    model axis, its batch dim still split over "data": counted, and its
-    gathers recorded (a device's (4, 6) fp32 rows)."""
-    x = _dt(mesh, (8, 6), ("data", "model"))
+    (6 over 2 ranks into 3 x 2), on a batch of 6 rows that the whole mesh
+    cannot split further (so the dry run's view rule has no dim to move
+    the shard to), runs again with that dim gathered over the model axis,
+    its batch dim still split over "data": counted, and its gathers
+    recorded (a device's (3, 6) fp32 rows)."""
+    x = _dt(mesh, (6, 6), ("data", "model"))
     trace, replicated, gathered = dryrun._sharded_run(
-        lambda a: a.view(8, 3, 2) * 2, [x])
-    assert replicated == {"view": 1} and gathered == {"view": 4 * 6 * 4}
+        lambda a: a.view(6, 3, 2) * 2, [x])
+    assert replicated == {"view": 1} and gathered == {"view": 3 * 6 * 4}
     assert trace.stats.count_by_kind["all-gather"] >= 1
-    assert trace.peak_live_bytes >= 4 * 6 * 4
+    assert trace.peak_live_bytes >= 3 * 6 * 4
 
 
 def test_a_call_no_partial_replication_shards_runs_whole(mesh):
@@ -324,7 +326,7 @@ def _wide_mesh():
                       mesh_dim_names=("data", "model"), _init_backend=False)
 
 
-def _view_schema(mesh, shape, placements, target, strategy: bool):
+def _view_schema(mesh, shape, placements, target):
     from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
     from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
                                                      OpStrategy)
@@ -332,8 +334,8 @@ def _view_schema(mesh, shape, placements, target, strategy: bool):
                       torch.empty(shape, device="meta").stride(),
                       torch.float32)
     spec = DTensorSpec(mesh, tuple(placements), tensor_meta=meta)
-    arg = OpStrategy([OpSpec(spec)]) if strategy else spec
-    return OpSchema(torch.ops.aten.view.default, (arg, list(target)), {})
+    return OpSchema(torch.ops.aten.view.default,
+                    (OpStrategy([OpSpec(spec)]), list(target)), {})
 
 
 def _local(t, placements, coord, mesh_shape):
@@ -361,24 +363,23 @@ def test_view_rule_gives_the_native_rules_placements(mesh, shape, target,
     Either way every device's output shard is its input shard viewed."""
     import itertools
 
-    from torch.distributed.tensor import DTensor, Shard
-    prop = DTensor._op_dispatcher.sharding_propagator
+    from torch.distributed.tensor import Shard
+    own = dryrun._native_view(torch.ops.aten.view.default)
     wide = _wide_mesh()
     given = (Shard(0), Shard(2))
     (choice,) = dryrun._view_strategy(
-        _view_schema(wide, shape, given, target, True)).strategies
+        _view_schema(wide, shape, given, target)).strategies
     moved = tuple(choice.input_specs[0].placements)
     out = tuple(choice.output_spec.placements)
     if divides:
-        native = prop.propagate_op_sharding(
-            _view_schema(wide, shape, given, target, False))
+        (native,) = own(_view_schema(wide, shape, given,
+                                     target)).strategies
         assert moved == given and choice.redistribute_cost == [[0.0]]
     else:
         with pytest.raises(RuntimeError):
-            prop.propagate_op_sharding(
-                _view_schema(wide, shape, given, target, False))
-        native = prop.propagate_op_sharding(
-            _view_schema(wide, shape, moved, target, False))
+            own(_view_schema(wide, shape, given, target))
+        (native,) = own(_view_schema(wide, shape, moved,
+                                     target)).strategies
         assert moved == (Shard(0), Shard(0))
         assert choice.redistribute_cost[0][0] > 0
     assert out == tuple(native.output_spec.placements)
@@ -398,20 +399,21 @@ def test_view_rule_moves_a_shard_only_onto_a_split_dim(mesh):
     with pytest.raises(RuntimeError):
         dryrun._view_strategy(_view_schema(
             _wide_mesh(), (4, 32, 1024), (Shard(0), Shard(2)),
-            (4, 32, 8, 128), True))
+            (4, 32, 8, 128)))
 
 
-def test_kv_head_view_runs_on_the_dry_runs_view_rule(mesh, monkeypatch):
-    """This torch's view rule places a split head dim as ``_StridedShard``:
-    the dry run keeps it.  As on a torch whose rule refuses that (2.11,
-    stood in for by the probe answering so), it registers its own rule
-    once, and a projection to 3 KV heads of 2 (the model axis is 2 wide)
-    viewed as heads runs with nothing replicated: its output split over
-    both axes on the batch dim, one collective moving the shard there,
-    where this torch's own rule runs the view replicated."""
-    from torch.distributed.tensor import DTensor, Shard
-    prop = DTensor._op_dispatcher.sharding_propagator
-    ops = [getattr(torch.ops.aten, n).default for n in dryrun._VIEW_OPS]
+def test_kv_head_view_runs_on_the_dry_runs_view_rule(mesh):
+    """This torch's own view rule refuses to split 3 KV heads packed in a
+    dim split over the 2-wide model axis (DTensor alone would run the view
+    replicated).  The dry run registers its own rule once, on every torch,
+    and a projection to those heads viewed as heads runs with nothing
+    replicated: its output split over both axes on the batch dim, one
+    collective moving the shard there."""
+    from torch.distributed.tensor import Shard
+    view = torch.ops.aten.view.default
+    with pytest.raises(RuntimeError):
+        dryrun._native_view(view)(_view_schema(
+            mesh, (8, 4, 6), (Shard(0), Shard(2)), (8, 4, 3, 2)))
     x = _dt(mesh, (8, 4, 4), ("data",))
     w = _dt(mesh, (4, 6), (None, "model"))
     outs = []
@@ -420,25 +422,9 @@ def test_kv_head_view_runs_on_the_dry_runs_view_rule(mesh, monkeypatch):
         outs.append((a @ b).view(8, 4, 3, 2))
         return outs[-1] * 2
 
-    assert dryrun._view_rule_places_strided(mesh)
-    assert not dryrun._ensure_view_rule(mesh)
-    _, replicated, _ = dryrun._sharded_run(step, [x, w])
-    assert replicated == {"view": 1}
-
-    def clear_caches():
-        prop.propagate_op_sharding.cache.cache_clear()
-        getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
-                lambda: None)()
-
-    monkeypatch.setattr(dryrun, "_view_rule_places_strided", lambda m: False)
-    try:
-        assert dryrun._ensure_view_rule(mesh)
-        assert not dryrun._ensure_view_rule(mesh)
-        trace, replicated, _ = dryrun._sharded_run(step, [x, w])
-    finally:
-        for op in ops:
-            prop.op_strategy_funcs[op] = dryrun._NATIVE_VIEW[op]
-        clear_caches()
+    dryrun._ensure_view_rule()
+    assert not dryrun._ensure_view_rule()
+    trace, replicated, _ = dryrun._sharded_run(step, [x, w])
     assert replicated == {}
     assert sum(trace.stats.count_by_kind.values()) >= 1
     assert tuple(outs[-1].placements) == (Shard(0), Shard(0))
