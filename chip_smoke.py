@@ -170,7 +170,11 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    (every torch gets the dry run's view rule) and a peak a device at most
    1.5x the JAX package's for the same cell; the two-pod cells' peaks
    and collectives beside the JAX package's on that mesh, mamba2-1.3b's
-   peak at most 1.5x it and qwen3-0.6b's at most 5x (ROADMAP C.12).
+   peak at most 1.5x it and qwen3-0.6b's at most 5x (ROADMAP C.12); two
+   serving cells on 16 x 16 beside the JAX package's: qwen3-0.6b x
+   prefill_32k (its cache placed on the mesh, its peak at most 1.7e10 B a
+   device) and phi3-mini-3.8b x decode_32k (its arena read where it lies,
+   its collectives at most 1e10 B).
 14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
    3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
    ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
@@ -2235,6 +2239,17 @@ REF_DRYRUN_COLLECTIVES = 7.4970554408e10
 # collective bytes), for the two-pod cells of phase 13 (f).
 REF_DRYRUN_MULTI = {"qwen3-0.6b": (9.652081464e9, 3.7579382824e10),
                     "mamba2-1.3b": (4.0878689856e10, 5.6008665388e10)}
+# The serving cells of phase 13 (f) on 16 x 16: ``python -m
+# repro.launch.dryrun --arch <arch> --shape <shape> --mesh single`` on the
+# CPU (peak bytes a device, collective bytes), and the bound each is held
+# to (ROADMAP C.12): the prefill's peak, the decode's collectives.
+REF_DRYRUN_SERVING = {
+    "dryrun_qwen3_prefill": ("qwen3-0.6b", "prefill_32k",
+                             (1.233248072e9, 2.0509360128e10)),
+    "dryrun_phi3_decode": ("phi3-mini-3.8b", "decode_32k",
+                           (1.8068707848e10, 1.2684544e7))}
+SERVING_BOUND = {"dryrun_qwen3_prefill": ("peak_memory_per_device", 1.7e10),
+                 "dryrun_phi3_decode": ("collective_bytes", 1e10)}
 # Phase 13 (f)'s bound on a two-pod cell's peak over the reference's:
 # mamba2-1.3b's is 1.5x, as the one-pod cell's; qwen3-0.6b's KV-head views
 # still run replicated over the model axis there (its batch of 8 rows a
@@ -2501,7 +2516,9 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         "dryrun_mamba2_smoke": ("mamba2-1.3b", "train", False, True),
         "dryrun_mamba2": ("mamba2-1.3b", "train_4k", False, False),
         "dryrun_mamba2_multi": ("mamba2-1.3b", "train_4k", True, False),
-        "dryrun_qwen3_multi": ("qwen3-0.6b", "train_4k", True, False)})
+        "dryrun_qwen3_multi": ("qwen3-0.6b", "train_4k", True, False),
+        **{key: (arch, shape, False, False)
+           for key, (arch, shape, _) in REF_DRYRUN_SERVING.items()}})
     for key, cell in cells.items():
         if cell.get("status") != "ok":
             fail(f"dry-run cell {key}: {cell.get('status')}")
@@ -2542,6 +2559,18 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         if peak > bound * ref_peak:
             fail(f"dry-run cell {key}: peak {peak} B a device, over "
                  f"{bound}x the reference's {ref_peak}")
+    # The serving cells: the prefill's cache placed on the mesh, the
+    # decode's arena read where it lies.
+    for key, (_, _, (ref_peak, ref_coll)) in REF_DRYRUN_SERVING.items():
+        rf = res[key]["roofline"]
+        res[key]["peak_over_reference"] = \
+            rf["peak_memory_per_device"] / ref_peak
+        res[key]["collectives_over_reference"] = \
+            rf["collective_bytes"] / ref_coll
+        metric, bound = SERVING_BOUND[key]
+        if rf[metric] > bound:
+            fail(f"dry-run cell {key}: {metric} {rf[metric]} B, over "
+                 f"{bound}")
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -3593,16 +3622,19 @@ def main() -> None:
         f"view rule registered by the dry run "
         f"{scaleout['dryrun_cell']['view_rule_registered']}")
     for key in ("dryrun_mamba2", "dryrun_mamba2_multi",
-                "dryrun_qwen3_multi"):
+                "dryrun_qwen3_multi", *REF_DRYRUN_SERVING):
         c = scaleout[key]
+        ref = REF_DRYRUN_SERVING[key][2] if key in REF_DRYRUN_SERVING \
+            else REF_DRYRUN_MULTI[c["arch"]]
         over = (f" ({c['peak_over_reference']:.4f}x and "
                 f"{c['collectives_over_reference']:.4f}x the reference's "
-                f"{REF_DRYRUN_MULTI[c['arch']][0]} B and "
-                f"{REF_DRYRUN_MULTI[c['arch']][1]} B)"
+                f"{ref[0]} B and {ref[1]} B)"
                 if "peak_over_reference" in c else "")
+        cache = c["memory"].get("cache_bytes")
         say(f"dry-run cell: {c['arch']} x {c['shape']} x {c['mesh']}: "
             f"peak {c['roofline']['peak_memory_per_device']:.10e} B a "
-            f"device, collectives {c['roofline']['collective_bytes']:.10e} "
+            f"device" + (f" (the cache's shards {cache} B)" if cache else "")
+            + f", collectives {c['roofline']['collective_bytes']:.10e} "
             f"B{over}, calls run replicated {c['replicated_calls']} "
             f"gathering {c['replicated_bytes']} B, view rule registered "
             f"{c['view_rule_registered']}, trace {c['trace_s']} s, "

@@ -351,6 +351,56 @@ def _to(t, want):
     return t.redistribute(t.device_mesh, tuple(want))
 
 
+def attend_on_shards(attend, q, arena_k, arena_v, table, *rows, **kw):
+    """``attend(q, arena_k, arena_v, table, *rows, **kw)``, a decode
+    attention through the KV-WAL (q (B,H,dk), arenas (B,NB,blk,KH,d), the
+    table and ``rows`` one entry a sequence: ``seq_lens``, ``first_live``)
+    → (B,H,dv), on each device's shards where the arenas are DTensors split
+    on the batch and the KV heads only: each sequence and each KV head's
+    group of query heads attends alone, so q is placed as the arenas are
+    (its heads where they split the KV heads), the table and rows where
+    they split the batch, and the output comes back placed as q.  XLA's
+    partitioner keeps the reference's batch and head dims split through
+    its dense attention; DTensor flattens the split batch and head dims
+    into one batch of products, which it cannot place, and gathers the
+    arena (phi3-mini's 32 and qwen2-moe's 16 KV heads on a 16-wide model
+    axis).  Plain tensors, and arenas split on another dim (the entry dim,
+    where the KV heads do not divide the model axis), go to ``attend`` as
+    they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = tuple(arena_k.placements) if isinstance(arena_k, DTensor) else ()
+    if not pl or tuple(arena_v.placements) != pl or not all(
+            p.is_replicate() or (type(p) is Shard and p.dim in (0, 3))
+            for p in pl) or all(p.is_replicate() for p in pl):
+        return attend(q, arena_k, arena_v, table, *rows, **kw)
+    mesh = arena_k.device_mesh
+    q_pl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(3)
+            else Replicate() for p in pl]
+    row_pl = [p if p == Shard(0) else Replicate() for p in pl]
+
+    def local(t, want):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return _to(t, want).to_local()
+
+    out = attend(local(q, q_pl), arena_k.to_local(), arena_v.to_local(),
+                 *(local(r, row_pl) for r in (table,) + rows), **kw)
+    shape = torch.Size((*q.shape[:2], arena_v.shape[-1]))
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (without making one:
+    a tensor made under the dry run's trace counts as allocated)."""
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= n
+    return tuple(reversed(out))
+
+
 # ---------------------------------------------------- vocab-parallel loss
 # XLA partitions the reference's log-softmax over vocab-sharded logits with
 # per-token all-reduces.  DTensor picks each op's placements by the bytes

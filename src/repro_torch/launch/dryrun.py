@@ -50,12 +50,30 @@ the mean's input was.  The view rule takes no ``_StridedShard``, so that
 placement sends 2.13's redistribution costs to its graph planner (a
 two-pod cell took 950 s; now 30-90 s).
 
+The serving cells keep the reference's placements.  A prefill writes into
+a cache made before the trace as DTensors placed by
+``sharding.cache_specs_tree`` (``_placed_cache``), as the reference's
+``out_shardings`` place it, and passed to the step: made inside the step,
+a global-size tensor was whole on every device.  A decode reads the
+KV-WAL arena where it lies: a read through the table runs on each
+device's rows (``_index_local``), an in-place append on each device's
+shards (``_write_local``), and where the arena splits the KV heads the
+attention runs on each device's sequences and heads
+(``sharding.attend_on_shards``).  On 2.11 an ``add`` of a product pending
+a sum and a term split on the same mesh dim, which DTensor refuses, has
+the sum scattered onto the term's dim, as 2.13 places it
+(``_meet_pending_sum``: the RG-LRU's gate biases).
+
 Peak memory per device is the local shard bytes of the step's arguments
 plus the high-water mark of the bytes allocated and not yet freed during
-the sharded run (activations saved for the backward included).  It stands
-in for the reference's ``memory_analysis`` (arguments + temporaries −
-aliases); the sharded run does not donate its arguments, so an updated
-state counts beside the old one.
+the sharded run (activations saved for the backward included), counted
+with Python's cycle collector off so that it does not hang on the
+collector's timing (``_drop_frames``).  It stands in for the reference's
+``memory_analysis`` (arguments + temporaries − aliases); the sharded run
+does not donate its arguments, so an updated state counts beside the old
+one.  A prefill's cache counts among its arguments (``memory.cache_bytes``
+its shards); the reference's ``argument + temp − alias`` leaves it out,
+since there the cache is the step's output.
 
 Each (arch × shape × mesh) cell is recorded, skipped ones (``runnable``)
 with their reason and failed ones as ``FAIL: <reason>``.  The output
@@ -66,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -82,6 +101,7 @@ from repro_torch.core.tree import leaves, unflatten
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import (init_fake_process_group,
                                      make_production_mesh, production_shape)
+from repro_torch.models import serve
 from repro_torch.roofline import analysis as roofline
 from repro_torch.roofline.op_cost import op_cost
 from repro_torch.training.optimizer import AdamWConfig
@@ -106,13 +126,19 @@ def _mesh_name(mesh) -> str:
     return "x".join(str(s) for s in mesh.shape)
 
 
-def _step_and_args(cfg, shape: ShapeSpec, opt, params, opt_state, specs):
-    """(step, positional args) of the cell's step."""
+def _prefill_max_seq(shape: ShapeSpec) -> int:
+    return shape.seq_len + 256
+
+
+def _step_and_args(cfg, shape: ShapeSpec, opt, params, opt_state, specs,
+                   cache=None):
+    """(step, positional args) of the cell's step; a prefill's ``cache``,
+    where given, is its last argument (the step makes its own without)."""
     if shape.kind == "train":
         return make_train_step(cfg, opt), [params, opt_state, specs]
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, max_seq=shape.seq_len + 256), \
-            [params, specs]
+        return make_prefill_step(cfg, max_seq=_prefill_max_seq(shape)), \
+            [params, specs] + ([cache] if cache is not None else [])
     args = [params, specs["cache"], specs["tokens"]]
     if "mrope_positions" in specs:
         args.append(specs["mrope_positions"])
@@ -139,8 +165,11 @@ class _DTensorGaps(TorchDispatchMode):
     counts the ops by name, ``replicated_bytes`` the bytes a device holds
     of the inputs they gathered.  A write named in
     ``LOCAL_WRITES`` (the KV-WAL's appends and prefill writes, a recurrent
-    state or cross K/V into its cache slot) runs on the local shards.
-    Any other op fails.  A scalar broadcast back to the shape of a
+    state or cross K/V into its cache slot) runs on the local shards, an
+    ``index_put_`` there first; a read through the KV-WAL's table runs on
+    each device's rows (``_index_local``); an ``add`` DTensor refuses has
+    its pending sums met (``_meet_pending_sum``).  Any other op that
+    DTensor refuses fails.  A scalar broadcast back to the shape of a
     whole-tensor reduction (the backward of the loss's mean) is placed as
     that reduction's input was (``_reduced``).  Entered after
     ``ShardedTrace``, so that it sees each op first and the trace sees
@@ -163,10 +192,26 @@ class _DTensorGaps(TorchDispatchMode):
                 any(issubclass(t, DTensor) for t in types):
             # DTensor would gather the operands and then refuse the write.
             return _write_local(func, args, kwargs)
+        if name == "index_put_" and isinstance(args[0], DTensor):
+            # 2.11's DTensor writes a copy of the whole destination (a
+            # KV-WAL layer's arena) on every device; 2.13 refuses.
+            try:
+                return _write_local(func, args, kwargs)
+            except NotImplementedError as err:
+                _drop_frames(err)
+        if func is torch.ops.aten.index.Tensor and _row_gather(*args):
+            # DTensor would move the source off its batch split to index it.
+            return _index_local(*args)
         try:
             out = func(*args, **kwargs)
         except (RuntimeError, ValueError, NotImplementedError,
-                AssertionError):
+                AssertionError) as err:
+            _drop_frames(err)
+            # 2.11 meets a pending sum and a split term by moving the term
+            # to a pending sum, which it cannot run (the RG-LRU's biases).
+            met = _meet_pending_sum(args) if name == "add" else None
+            if met is not None:
+                return func(*met, **kwargs)
             if not any(issubclass(t, DTensor) for t in types) or \
                     name not in REPLICABLE | LOCAL_WRITES:
                 raise
@@ -198,7 +243,8 @@ class _DTensorGaps(TorchDispatchMode):
             try:
                 return _split_again(func(*a, **kw), given)
             except (RuntimeError, ValueError, NotImplementedError,
-                    AssertionError):
+                    AssertionError) as err:
+                _drop_frames(err)
                 flat = moved
         whole = [Replicate()] * mesh.ndim
         a, kw = unflatten([list(args), kwargs], [
@@ -230,6 +276,22 @@ class _DTensorGaps(TorchDispatchMode):
             if want is not None and not any(p.is_partial() for p in want):
                 return out.redistribute(out.device_mesh, want)
         return out
+
+
+def _drop_frames(err: BaseException) -> None:
+    """Clear the finished frames of ``err``'s traceback and of the
+    exceptions it chains.  A refused op's exception holds DTensor's
+    dispatch frames, and with them the op's local tensors; where it sits
+    in a reference cycle (an exception kept in a local of a frame on its
+    own traceback), those tensors lived on until Python's cycle collector
+    ran, and the trace's peak moved with the collector's timing
+    (whisper-large-v3 x train_4k x 2 x 16 x 16: 3.5e10 to 5.5e10 B a
+    device; 2.7e12 with the collector off)."""
+    seen = set()
+    while err is not None and id(err) not in seen:
+        seen.add(id(err))
+        traceback.clear_frames(err.__traceback__)
+        err = err.__cause__ or err.__context__
 
 
 def _split_again(out, given):
@@ -270,7 +332,8 @@ def _write_local(func, args, kwargs):
     """``copy_(dst, src)`` or ``index_put_(dst, indices, values)`` on each
     device's shards: every operand is split as ``dst`` is along the dims it
     writes, and the write runs on the local tensors.  A plain ``dst`` (a
-    cache the step made itself) is replicated: it takes whole operands.
+    tensor the step made itself; no serving cache since the dry run places
+    the prefill's) is replicated: it takes whole operands.
     ``dst`` may be split along an indexed dim only if it is its first and
     one index a row runs along it (the KV-WAL's batch rows); the dry run's
     shards are meta tensors, so no row index is translated to local rows,
@@ -317,6 +380,98 @@ def _write_local(func, args, kwargs):
                  split(values, dim_of)] + rest[2:]
     func(dst.to_local(), *local, **kwargs)
     return dst
+
+
+def _meet_pending_sum(args):
+    """``args`` with each pending sum (``Partial``) on a mesh dim where
+    another operand is split completed there: reduced and scattered along
+    that operand's dim (aligned from the right, as a broadcast aligns
+    them) → the new args, or None where no operand has such a sum.  The
+    RG-LRU's gate bias added to its product (``models/griffin.py::
+    _rg_lru``): on 2.11 the product comes out pending a sum over the model
+    axis, the bias is split over it, and DTensor asks a ``Shard`` →
+    ``Partial`` move of the bias that it then refuses; 2.13 reduce-scatters
+    the product onto the bias's dim, and so does this."""
+    from torch.distributed.tensor import DTensor, Shard
+    terms = [a for a in args if isinstance(a, DTensor)]
+    out, moved = [], False
+    for a in args:
+        want = list(a.placements) if isinstance(a, DTensor) else []
+        for i, p in enumerate(want):
+            for t in terms:
+                q = t.placements[i]
+                d = q.dim - t.dim() + a.dim() if type(q) is Shard else -1
+                if p.is_partial() and t is not a and 0 <= d < a.dim() and \
+                        a.shape[d] == t.shape[q.dim]:
+                    want[i] = Shard(d)
+                    break
+        if want != list(getattr(a, "placements", [])):
+            a, moved = a.redistribute(a.device_mesh, want), True
+        out.append(a)
+    return out if moved else None
+
+
+def _row_gather(src, indices) -> bool:
+    """Whether ``src[indices]`` is a read through a per-row table: ``src``
+    a DTensor split on its first dim, the first index a plain tensor of
+    one entry a row of it (``arange(B)[:, None]``: the KV-WAL's batch rows)
+    and every index of the same rank, running along the rows (the table,
+    ``(B, n_blocks)``).  The dry run's shards are meta tensors, so the
+    rows' values cannot be read: like ``_write_local``, this takes the
+    first index to be the rows in their order."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(src, DTensor) or not indices or \
+            src.to_local().device.type != "meta" or \
+            not any(type(p) is Shard and p.dim == 0 for p in src.placements):
+        return False
+    rows = indices[0]
+    if rows is None or isinstance(rows, DTensor) or \
+            rows.shape[0] != src.shape[0] or rows.numel() != src.shape[0]:
+        return False
+    return all(i is not None and i.dim() == rows.dim() and
+               i.shape[0] == src.shape[0] and
+               not (i.dtype.is_floating_point or i.dtype == torch.bool) and
+               (not isinstance(i, DTensor) or
+                all(p.is_replicate() for p in i.placements))
+               for i in indices)
+
+
+def _index_local(src, indices):
+    """``src[indices]`` of a ``_row_gather`` on each device's rows: the
+    indices split as ``src``'s first dim is (a slice of each device's
+    copy), ``src``'s other indexed dims whole, its later dims kept as they
+    are split; the output split likewise (its first dim the rows', its
+    last the source's unindexed dims).  The KV-WAL's decode reads (the
+    plain ``tide_attention``'s and ``kvwal.gather``'s), where DTensor
+    would move the arena's split from the batch onto an unindexed dim
+    and then gather the whole arena to view its blocks as positions."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, k = src.device_mesh, len(indices)
+    lead = torch.broadcast_shapes(*(i.shape for i in indices))
+    src_want, idx_want, out_pl = [], [], []
+    for p in src.placements:
+        if type(p) is Shard and p.dim == 0:
+            src_want.append(p)
+            idx_want.append(Shard(0))
+            out_pl.append(Shard(0))
+        elif type(p) is Shard and p.dim >= k:
+            src_want.append(p)
+            idx_want.append(Replicate())
+            out_pl.append(Shard(p.dim - k + len(lead)))
+        else:                        # an indexed dim split, or a pending sum
+            src_want.append(Replicate())
+            idx_want.append(Replicate())
+            out_pl.append(Replicate())
+    local_src = src.redistribute(mesh, src_want).to_local()
+    local_idx = [
+        (i if isinstance(i, DTensor) else DTensor.from_local(
+            i, mesh, [Replicate()] * mesh.ndim, run_check=False)
+         ).redistribute(mesh, idx_want).to_local() for i in indices]
+    out = torch.ops.aten.index.Tensor(local_src, local_idx)
+    shape = torch.Size(tuple(lead) + tuple(src.shape[k:]))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape,
+                              stride=sharding.contiguous_strides(shape))
 
 
 def _flip_strategy(op_schema):
@@ -412,14 +567,16 @@ def _view_strategy(op_schema):
     from torch.distributed.tensor._ops.utils import \
         generate_redistribute_costs
     native = _native_view(op_schema.op)
+    # The refusal is kept as its message: an exception held in a local of
+    # a frame on its own traceback is a cycle that keeps every caller's
+    # tensors alive until the cycle collector runs (``_drop_frames``).
     try:
         placed = native(op_schema)
         if not _strided(placed):
             return placed
-        refused = RuntimeError(f"{op_schema.op}: the dry run places no "
-                               f"_StridedShard")
+        refused = f"{op_schema.op}: the dry run places no _StridedShard"
     except (RuntimeError, AssertionError) as e:
-        refused = e
+        refused = f"{op_schema.op}: {e}"
     inp = op_schema.args_schema[0]
     rest = op_schema.args_schema[1:]
 
@@ -460,7 +617,7 @@ def _view_strategy(op_schema):
             if fits:
                 moved = trials[0]
         if got is None:
-            raise refused
+            raise RuntimeError(refused)
         for choice in got.strategies:
             choice.redistribute_cost = [
                 generate_redistribute_costs(inp, choice.input_specs[0])]
@@ -497,10 +654,31 @@ def _sharded_run(step, args):
     _ensure_flip_rule()
     _ensure_view_rule()
     trace, gaps = roofline.ShardedTrace(), _DTensorGaps()
-    with implicit_replication(), trace, gaps:
-        out = step(*args)
-    del out
+    # The peak counts a tensor until its last reference goes: with the
+    # cycle collector off, a tensor held in a reference cycle counts until
+    # the run ends, the same on every run, where the collector's timing
+    # would free it at some step or other (``_drop_frames``).
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with implicit_replication(), trace, gaps:
+            out = step(*args)
+        del out
+    finally:
+        if collecting:
+            gc.enable()
     return trace, gaps.replicated, gaps.replicated_bytes
+
+
+def _placed_cache(cfg, batch: int, max_seq: int, mesh) -> dict:
+    """The serving cache of ``serve.cache_spec(cfg, batch, max_seq)`` as
+    DTensors placed by ``sharding.cache_specs_tree``, their local shards
+    meta tensors; the table a placeholder (the prefill writes through the
+    identity table, and reads none)."""
+    cache = {k: torch.empty(shape, dtype=dt, device="meta") for k, (shape, dt)
+             in serve.cache_spec(cfg, batch, max_seq).items()}
+    return sharding.distribute(cache, sharding.cache_specs_tree(cache, mesh),
+                               mesh)
 
 
 def lower_cell(arch: str, shape_name, multi_pod: bool,
@@ -544,9 +722,16 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
     d_opt = sharding.distribute(
         opt_abs, sharding.opt_specs(opt_abs, pspec), mesh) \
         if shape.kind == "train" else None
-    _, d_args = _step_and_args(cfg, shape, opt, d_params, d_opt, d_inputs)
-    arg_bytes = sum(t.to_local().numel() * t.element_size()
-                    for t in leaves(d_args))
+    # A prefill's cache, placed as the reference's out_shardings place it,
+    # made here: a global-size tensor made inside the trace is counted whole.
+    d_cache = _placed_cache(cfg, specs["tokens"].shape[0],
+                            _prefill_max_seq(shape), mesh) \
+        if shape.kind == "prefill" else None
+    _, d_args = _step_and_args(cfg, shape, opt, d_params, d_opt, d_inputs,
+                               d_cache)
+    local_bytes = lambda tree: sum(t.to_local().numel() * t.element_size()
+                                   for t in leaves(tree))
+    arg_bytes = local_bytes(d_args)
     trace, replicated, replicated_bytes = _sharded_run(step, d_args)
     t_trace = time.time() - t0
     coll = trace.stats
@@ -569,6 +754,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
         "status": "ok", "sharding_mode": sharding_mode,
         "cost_s": round(t_cost, 1), "trace_s": round(t_trace, 1),
         "memory": {"argument_bytes": arg_bytes,
+                   "cache_bytes": local_bytes(d_cache or {}),
                    "peak_live_bytes": trace.peak_live_bytes},
         "replicated_calls": replicated,
         "replicated_bytes": replicated_bytes,

@@ -96,9 +96,9 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- attention
 def _attn_scores_block(q, k, v, mask, scale):
-    """q (B,Sq,KH,G,hd), k (B,Skv,KH,hd), v (B,Skv,KH,vd), mask (B,Sq,Skv).
-    Scores in fp32 (the JAX package's preferred_element_type), weights cast
-    to v's dtype for the second product, as there."""
+    """q (B,Sq,KH,G,hd), k (B,Skv,KH,hd), v (B,Skv,KH,vd), mask (B,Sq,Skv)
+    or (1,Sq,Skv).  Scores in fp32 (the JAX package's preferred_element_type),
+    weights cast to v's dtype for the second product, as there."""
     s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
     s = s.masked_fill(~mask[:, None, None, :, :], -1e30)
     p = torch.softmax(s, dim=-1)
@@ -129,13 +129,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_pos = torch.arange(Skv, device=dev)[None, None, :]      # (1,1,Skv)
 
     def mask_for(q_positions):
-        # q_positions (1, Sq') → mask (B, Sq', Skv)
+        # q_positions (1, Sq') → mask (1, Sq', Skv), broadcast over the
+        # batch: a plain tensor of the batch's size would be whole on every
+        # device of a sharded run.
         m = torch.ones((1, 1, Skv), dtype=torch.bool, device=dev)
         if causal:
             m = m & (kv_pos <= q_positions[..., None])
         if window > 0:
             m = m & (kv_pos > q_positions[..., None] - window)
-        return m.expand(B, q_positions.shape[-1], Skv)
+        return m.expand(1, q_positions.shape[-1], Skv)
 
     if chunk_q and Sq > chunk_q and Sq % chunk_q == 0:
         outs = []

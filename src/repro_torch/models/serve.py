@@ -5,7 +5,8 @@ blocks).
 
 - ``cache_spec(cfg, batch, max_seq)`` → {name: (shape, dtype)}
 - ``init_cache(cfg, batch, max_seq, device)`` → zeroed cache, identity table
-- ``prefill(params, cfg, batch_inputs, max_seq)`` → (last-token logits, cache)
+- ``prefill(params, cfg, batch_inputs, max_seq[, cache])`` → (last-token
+  logits, cache)
 - ``decode_step(params, cfg, cache, tokens)`` → (logits, cache)
 
 GQA decode reads K/V *through* the KV-WAL slot table inside the
@@ -138,9 +139,10 @@ def _self_attn_decode(cfg: ModelConfig, layer_p, h, arena_k, arena_v, table,
     kvwal.append_token(arena_k, table, seq_lens, k[:, 0])
     kvwal.append_token(arena_v, table, seq_lens, v[:, 0])
     q = _maybe_shard_decode_q(cfg, q)
-    o = decode_attention(q[:, 0].contiguous(), arena_k, arena_v, table,
-                         seq_lens + 1, first_live, window=window,
-                         scale=cfg.hd ** -0.5)
+    from repro_torch.distributed.sharding import attend_on_shards
+    o = attend_on_shards(decode_attention, q[:, 0].contiguous(), arena_k,
+                         arena_v, table, seq_lens + 1, first_live,
+                         window=window, scale=cfg.hd ** -0.5)
     return o.reshape(h.shape[0], 1, -1) @ p["wo"].to(h.dtype)
 
 
@@ -272,17 +274,21 @@ def _griffin_prefill(params, cfg: ModelConfig, cache: dict, x, cos, sin):
     return x
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int
-            ) -> tuple[torch.Tensor, dict]:
+def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int,
+            cache: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Run the prompt, writing every position's KV entry into a fresh
     KV-WAL arena (write-once: these bytes never move again) or leaving each
-    recurrent block's final state in the cache."""
+    recurrent block's final state in the cache.  ``cache`` is written in
+    place where given (``init_cache(cfg, B, max_seq)``'s names and shapes,
+    its table the identity; the dry run passes one placed on the mesh);
+    without it the prefill makes its own with ``init_cache``."""
     require_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = with_vision(cfg, embed_tokens(params, cfg, tokens),
                     batch.get("vision_embed"))
-    cache = init_cache(cfg, B, max_seq, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_seq, x.device)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             layer_p = layer(params["layers"], i)
@@ -293,7 +299,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int
             cache["state"][i].copy_(st)
             x = x + out
     elif cfg.family == "encdec":
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None]    # (1, S)
         x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
         enc = encode(params, cfg, batch["frames"])
         for i in range(cfg.n_layers):
@@ -304,7 +310,8 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int
             cache["cross_k"][i].copy_(ck)
             cache["cross_v"][i].copy_(cv)
     else:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        # One row of positions, broadcast over the batch by every use.
+        positions = torch.arange(S, device=x.device)[None]
         cos, sin = _angles(cfg, positions, batch.get("mrope_positions"))
         if cfg.family == "griffin":
             x = _griffin_prefill(params, cfg, cache, x, cos, sin)

@@ -43,9 +43,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    """Returns prefill_step(params, batch, cache=None) → (logits, cache):
+    ``serve.prefill``, into ``cache`` where one is given."""
     @torch.no_grad()
-    def prefill_step(params, batch):
-        return serve_mod.prefill(params, cfg, batch, max_seq=max_seq)
+    def prefill_step(params, batch, cache=None):
+        return serve_mod.prefill(params, cfg, batch, max_seq=max_seq,
+                                 cache=cache)
     return prefill_step
 
 
