@@ -167,14 +167,21 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    train_4k on 2 x 16 x 16, each in a subprocess, all at once: status
    ``ok``, no op run replicated but those ``dryrun.REPLICABLE`` names,
    each with the bytes it gathered; in the one-pod qwen3 cell no view
-   (every torch gets the dry run's view rule) and a peak a device at most
-   1.5x the JAX package's for the same cell; the two-pod cells' peaks
-   and collectives beside the JAX package's on that mesh, mamba2-1.3b's
-   peak at most 1.5x it and qwen3-0.6b's at most 5x (ROADMAP C.12); two
-   serving cells on 16 x 16 beside the JAX package's: qwen3-0.6b x
-   prefill_32k (its cache placed on the mesh, its peak at most 1.7e10 B a
-   device) and phi3-mini-3.8b x decode_32k (its arena read where it lies,
-   its collectives at most 1e10 B).
+   (every torch gets the dry run's view rule) and a footprint a device
+   (arguments plus the trace's high-water mark) at most 1.5x the JAX
+   package's peak for the same cell; the two-pod cells' footprints and
+   collectives beside the JAX package's on that mesh, mamba2-1.3b's
+   footprint at most 1.5x its peak and qwen3-0.6b's at most 5x (ROADMAP
+   C.12); two serving cells on 16 x 16 beside the JAX package's:
+   qwen3-0.6b x prefill_32k (its cache placed on the mesh, its footprint
+   at most 1.7e10 B a device) and phi3-mini-3.8b x decode_32k (its arena
+   read where it lies, its collectives at most 1e10 B); and two train
+   cells on 16 x 16 held on the reference's terms (the reference's
+   argument + temp - alias: the donated state and the outputs that
+   replace it left out, ROADMAP C.16): qwen2-moe-a2.7b x train_4k at most
+   2x the JAX package's peak, and deepseek-v3-671b x train_4k at 2 layers
+   at most 5e10 B with no tensor of ``we_down``'s whole shape live at its
+   peak (C.17).  Every cell prints both peaks.
 14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
    3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
    ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
@@ -2248,7 +2255,7 @@ REF_DRYRUN_SERVING = {
                              (1.233248072e9, 2.0509360128e10)),
     "dryrun_phi3_decode": ("phi3-mini-3.8b", "decode_32k",
                            (1.8068707848e10, 1.2684544e7))}
-SERVING_BOUND = {"dryrun_qwen3_prefill": ("peak_memory_per_device", 1.7e10),
+SERVING_BOUND = {"dryrun_qwen3_prefill": ("footprint_bytes", 1.7e10),
                  "dryrun_phi3_decode": ("collective_bytes", 1e10)}
 # Phase 13 (f)'s bound on a two-pod cell's peak over the reference's:
 # mamba2-1.3b's is 1.5x, as the one-pod cell's; qwen3-0.6b's KV-head views
@@ -2256,14 +2263,28 @@ SERVING_BOUND = {"dryrun_qwen3_prefill": ("peak_memory_per_device", 1.7e10),
 # device row cannot take the 16-wide axis: ROADMAP C.12), so its bound
 # only guards the batch split over pod and data (54x before it was kept).
 MULTI_PEAK_BOUND = {"qwen3-0.6b": 5.0, "mamba2-1.3b": 1.5}
+# The bounds above hold each cell's footprint (``memory.footprint_bytes``:
+# its arguments plus the trace's high-water mark, nothing donated).  Two
+# train cells are held on the reference's terms (``memory.
+# peak_reference_terms``, the reference's argument + temp - alias, ROADMAP
+# C.16): qwen2-moe-a2.7b x train_4k x 16 x 16 within 2x the JAX package's
+# peak for it (``python -m repro.launch.dryrun --arch qwen2-moe-a2.7b
+# --shape train_4k --mesh single`` on the CPU), and deepseek-v3-671b x
+# train_4k x 16 x 16 at 2 layers within 5e10 B, with no tensor of
+# ``we_down``'s whole (experts, ff, d) shape live at its peak (C.17).
+REF_DRYRUN_QWEN2_MOE = 1.00991119568e11
+QWEN2_MOE_BOUND = 2.0
+DEEPSEEK_2L_BOUND = 5e10
+DEEPSEEK_WE_DOWN = (256, 2048, 7168)
 
 
-def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool) -> str:
+def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool,
+                 overrides: dict | None = None) -> str:
     """The program of one dry-run cell: ``lower_cell(arch, shape,
-    multi_pod)`` on the fake group of 256 or 512 ranks, or with ``smoke``
-    the SMOKE config's cell of kind ``shape`` (4 x 64 tokens) on a fake
-    (2, 2) mesh of 4 ranks, as the CPU tests run it, whose record says
-    whether the dry run registered its own ``flip`` rule
+    multi_pod, overrides)`` on the fake group of 256 or 512 ranks, or
+    with ``smoke`` the SMOKE config's cell of kind ``shape`` (4 x 64
+    tokens) on a fake (2, 2) mesh of 4 ranks, as the CPU tests run it,
+    whose record says whether the dry run registered its own ``flip`` rule
     (``flip_rule_registered``).  Each record says whether the dry run's
     view rule was in place (``view_rule_registered``: on every torch)."""
     if smoke:
@@ -2282,7 +2303,7 @@ def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool) -> str:
                 "e['flip_rule_registered'] = registered\n")
     else:
         cell = (f"e = dryrun.lower_cell({arch!r}, {shape!r}, "
-                f"multi_pod={multi_pod})\n")
+                f"multi_pod={multi_pod}, overrides={overrides!r})\n")
     return ("import json, logging\n"
             "import torch\n"
             "from torch.distributed.tensor import DTensor\n"
@@ -2296,22 +2317,24 @@ def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool) -> str:
 
 
 def dryrun_cells(cells: dict) -> dict:
-    """Each cell of ``cells`` (key → ``(arch, shape, multi_pod, smoke)``)
-    in a process of its own, all at once (the fake group replaces the live
-    one, and this process's NCCL group must stay) → key → its record with
+    """Each cell of ``cells`` (key → ``(arch, shape, multi_pod, smoke)``,
+    and the config's overrides where a fifth entry gives them) in a process
+    of its own, all at once (the fake group replaces the live one, and this
+    process's NCCL group must stay) → key → its record with
     ``subprocess_s``.  Fails on a cell that does not print its record."""
     env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
     out, procs = {}, {}
     with tempfile.TemporaryDirectory() as logs:
         t0 = time.perf_counter()
         try:
-            for key, (arch, shape, multi_pod, smoke) in cells.items():
+            for key, (arch, shape, multi_pod, smoke, *overrides) in \
+                    cells.items():
                 path = os.path.join(logs, key)
                 with open(path + ".out", "w") as o, \
                         open(path + ".err", "w") as e:
                     procs[key] = subprocess.Popen(
                         [sys.executable, "-c", _dryrun_code(
-                            arch, shape, multi_pod, smoke)],
+                            arch, shape, multi_pod, smoke, *overrides)],
                         stdout=o, stderr=e, env=env)
             for key, proc in procs.items():
                 rc = proc.wait(timeout=max(1.0, 900 - (time.perf_counter()
@@ -2517,6 +2540,9 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         "dryrun_mamba2": ("mamba2-1.3b", "train_4k", False, False),
         "dryrun_mamba2_multi": ("mamba2-1.3b", "train_4k", True, False),
         "dryrun_qwen3_multi": ("qwen3-0.6b", "train_4k", True, False),
+        "dryrun_qwen2_moe": ("qwen2-moe-a2.7b", "train_4k", False, False),
+        "dryrun_deepseek_2l": ("deepseek-v3-671b", "train_4k", False, False,
+                               {"n_layers": 2}),
         **{key: (arch, shape, False, False)
            for key, (arch, shape, _) in REF_DRYRUN_SERVING.items()}})
     for key, cell in cells.items():
@@ -2540,7 +2566,7 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
              if k in ("view", "_unsafe_view")}
     if views:
         fail(f"dry-run cell: views run replicated {views}")
-    peak = cell["roofline"]["peak_memory_per_device"]
+    peak = cell["memory"]["footprint_bytes"]
     cell["peak_over_reference"] = peak / REF_DRYRUN_PEAK
     cell["collectives_over_reference"] = \
         cell["roofline"]["collective_bytes"] / REF_DRYRUN_COLLECTIVES
@@ -2551,7 +2577,7 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     for key in ("dryrun_qwen3_multi", "dryrun_mamba2_multi"):
         cell = res[key]
         ref_peak, ref_coll = REF_DRYRUN_MULTI[cell["arch"]]
-        peak = cell["roofline"]["peak_memory_per_device"]
+        peak = cell["memory"]["footprint_bytes"]
         cell["peak_over_reference"] = peak / ref_peak
         cell["collectives_over_reference"] = \
             cell["roofline"]["collective_bytes"] / ref_coll
@@ -2562,15 +2588,30 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     # The serving cells: the prefill's cache placed on the mesh, the
     # decode's arena read where it lies.
     for key, (_, _, (ref_peak, ref_coll)) in REF_DRYRUN_SERVING.items():
-        rf = res[key]["roofline"]
-        res[key]["peak_over_reference"] = \
-            rf["peak_memory_per_device"] / ref_peak
+        rf, mem = res[key]["roofline"], res[key]["memory"]
+        res[key]["peak_over_reference"] = mem["footprint_bytes"] / ref_peak
         res[key]["collectives_over_reference"] = \
             rf["collective_bytes"] / ref_coll
         metric, bound = SERVING_BOUND[key]
-        if rf[metric] > bound:
-            fail(f"dry-run cell {key}: {metric} {rf[metric]} B, over "
-                 f"{bound}")
+        got = mem[metric] if metric in mem else rf[metric]
+        if got > bound:
+            fail(f"dry-run cell {key}: {metric} {got} B, over {bound}")
+    # Two train cells on the reference's terms (ROADMAP C.16, C.17).
+    cell = res["dryrun_qwen2_moe"]
+    peak = cell["memory"]["peak_reference_terms"]
+    cell["peak_over_reference"] = peak / REF_DRYRUN_QWEN2_MOE
+    if peak > QWEN2_MOE_BOUND * REF_DRYRUN_QWEN2_MOE:
+        fail(f"dry-run cell dryrun_qwen2_moe: peak on the reference's terms "
+             f"{peak} B, over {QWEN2_MOE_BOUND}x the reference's "
+             f"{REF_DRYRUN_QWEN2_MOE}")
+    cell = res["dryrun_deepseek_2l"]
+    peak = cell["memory"]["peak_reference_terms"]
+    whole = [h for h in cell["memory"]["peak_holders"]
+             if tuple(h[1][-3:]) == DEEPSEEK_WE_DOWN]
+    if whole or peak > DEEPSEEK_2L_BOUND:
+        fail(f"dry-run cell dryrun_deepseek_2l: peak on the reference's "
+             f"terms {peak} B (bound {DEEPSEEK_2L_BOUND}), we_down whole at "
+             f"it: {whole}")
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -3611,34 +3652,48 @@ def main() -> None:
         f"({rf['chips']} fake ranks): t_compute {rf['t_compute']:.4f} s, "
         f"t_memory {rf['t_memory']:.4f} s, t_collective "
         f"{rf['t_collective']:.4f} s, bottleneck {rf['bottleneck']}, "
-        f"peak {rf['peak_memory_per_device']:.4e} B a device, "
+        f"peak on the reference's terms {rf['peak_memory_per_device']:.4e}"
+        f" B a device, footprint "
+        f"{scaleout['dryrun_cell']['memory']['footprint_bytes']:.4e} B, "
         f"collectives {rf['collective_bytes']:.4e} B, calls run "
         f"replicated {scaleout['dryrun_cell']['replicated_calls']} "
         f"gathering {scaleout['dryrun_cell']['replicated_bytes']} B; "
-        f"peak {scaleout['dryrun_cell']['peak_over_reference']:.4f}x and "
+        f"footprint {scaleout['dryrun_cell']['peak_over_reference']:.4f}x and "
         f"collectives "
         f"{scaleout['dryrun_cell']['collectives_over_reference']:.4f}x the "
         f"reference's ({REF_DRYRUN_PEAK} B, {REF_DRYRUN_COLLECTIVES} B); "
         f"view rule registered by the dry run "
         f"{scaleout['dryrun_cell']['view_rule_registered']}")
-    for key in ("dryrun_mamba2", "dryrun_mamba2_multi",
-                "dryrun_qwen3_multi", *REF_DRYRUN_SERVING):
+    for key in ("dryrun_cell", "dryrun_mamba2", "dryrun_mamba2_multi",
+                "dryrun_qwen3_multi", "dryrun_qwen2_moe",
+                "dryrun_deepseek_2l", *REF_DRYRUN_SERVING):
         c = scaleout[key]
         ref = REF_DRYRUN_SERVING[key][2] if key in REF_DRYRUN_SERVING \
-            else REF_DRYRUN_MULTI[c["arch"]]
-        over = (f" ({c['peak_over_reference']:.4f}x and "
-                f"{c['collectives_over_reference']:.4f}x the reference's "
-                f"{ref[0]} B and {ref[1]} B)"
-                if "peak_over_reference" in c else "")
-        cache = c["memory"].get("cache_bytes")
-        say(f"dry-run cell: {c['arch']} x {c['shape']} x {c['mesh']}: "
-            f"peak {c['roofline']['peak_memory_per_device']:.10e} B a "
-            f"device" + (f" (the cache's shards {cache} B)" if cache else "")
+            else (REF_DRYRUN_PEAK, REF_DRYRUN_COLLECTIVES) \
+            if key == "dryrun_cell" else REF_DRYRUN_MULTI.get(c["arch"])
+        over = ""
+        if key == "dryrun_qwen2_moe":
+            over = (f" (on the reference's terms "
+                    f"{c['peak_over_reference']:.4f}x the reference's "
+                    f"{REF_DRYRUN_QWEN2_MOE} B)")
+        elif "peak_over_reference" in c:
+            over = (f" (footprint {c['peak_over_reference']:.4f}x and "
+                    f"collectives {c['collectives_over_reference']:.4f}x the "
+                    f"reference's {ref[0]} B and {ref[1]} B)")
+        mem = c["memory"]
+        cache = mem.get("cache_bytes")
+        say(f"dry-run cell: {c['arch']} x {c['shape']} x {c['mesh']}"
+            + (" (2 layers)" if key == "dryrun_deepseek_2l" else "") +
+            f": peak on the reference's terms "
+            f"{mem['peak_reference_terms']:.10e} B a device, footprint "
+            f"{mem['footprint_bytes']:.10e} B"
+            + (f" (the cache's shards {cache} B)" if cache else "")
             + f", collectives {c['roofline']['collective_bytes']:.10e} "
             f"B{over}, calls run replicated {c['replicated_calls']} "
             f"gathering {c['replicated_bytes']} B, view rule registered "
             f"{c['view_rule_registered']}, trace {c['trace_s']} s, "
-            f"{c['subprocess_s']:.1f} s")
+            f"{c['subprocess_s']:.1f} s; largest at the peak "
+            f"{mem['peak_holders'][:3]}")
     m2 = scaleout["dryrun_mamba2_smoke"]
     say(f"dry-run cell: {m2['arch']} SMOKE x {m2['shape']} x {m2['mesh']}: "
         f"{m2['status']}, flip rule registered by the dry run "

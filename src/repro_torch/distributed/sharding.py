@@ -420,6 +420,42 @@ def vocab_parallel_input(x, w, vocab_dim: int):
                    else px for px, pw in zip(x.placements, w.placements)])
 
 
+def experts_as_weight(x, w, x_dim: int = 1, w_dim: int = 0):
+    """``x`` with its expert dim ``x_dim`` split over each mesh dim that
+    splits the expert weight ``w`` along its expert dim ``w_dim``, its
+    other mesh dims as they were (a plain tensor, or one whose expert dim
+    nothing splits, is returned as it is), its gradient placed the same
+    (``grad_as_value``).  The MoE's expert inputs and outputs
+    (``models/moe.py``): XLA's partitioner propagates the experts' split
+    from the weights into the expert products and their cotangents.
+    DTensor places each product by the bytes its inputs move: it split the
+    expert inputs by their hidden dim in the forward, and the down
+    projection's output gradient by groups in the backward, which left
+    ``we_down``'s gradient whole on every device, pending a sum (ROADMAP
+    C.17)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    want = [Shard(x_dim) if type(pw) is Shard and pw.dim == w_dim else px
+            for px, pw in zip(x.placements, w.placements)]
+    return grad_as_value(_to(x, want))
+
+
+def grad_as_value(t):
+    """``t`` itself, its gradient placed as ``t`` is when the backward
+    reaches it (a hook; a plain tensor, or one that needs no gradient, is
+    returned as it is): XLA places a cotangent as its primal.  2.11's
+    DTensor kept MLA's attention-output gradient pending a sum over the
+    model axis through the attention's backward, every head of a batch
+    row's fp32 scores on each device (``models/mla.py``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor) and t.requires_grad:
+        want = tuple(t.placements)
+        t.register_hook(lambda g: _to(g, want)
+                        if isinstance(g, DTensor) else g)
+    return t
+
+
 def complete(t):
     """``t`` with its pending reductions done: each ``Partial`` mesh dim
     all-reduced to ``Replicate``."""

@@ -64,16 +64,23 @@ a sum and a term split on the same mesh dim, which DTensor refuses, has
 the sum scattered onto the term's dim, as 2.13 places it
 (``_meet_pending_sum``: the RG-LRU's gate biases).
 
-Peak memory per device is the local shard bytes of the step's arguments
-plus the high-water mark of the bytes allocated and not yet freed during
-the sharded run (activations saved for the backward included), counted
-with Python's cycle collector off so that it does not hang on the
-collector's timing (``_drop_frames``).  It stands in for the reference's
-``memory_analysis`` (arguments + temporaries − aliases); the sharded run
-does not donate its arguments, so an updated state counts beside the old
-one.  A prefill's cache counts among its arguments (``memory.cache_bytes``
-its shards); the reference's ``argument + temp − alias`` leaves it out,
-since there the cache is the step's output.
+Memory a device, ``memory`` in the record (``traced_memory``): the local
+shard bytes of the step's arguments (``argument_bytes``) and the
+high-water mark of the bytes the sharded run allocates and has not freed
+(``peak_live_bytes``: activations saved for the backward included, a
+storage counted once whatever tensors hold it, with Python's cycle
+collector off so that it does not hang on the collector's timing,
+``_drop_frames``).  Their sum is the footprint (``footprint_bytes``): what
+a device holds when nothing is donated, the old state beside the new one.
+The reference reports XLA's argument + temp - alias, and donates the
+train state and a decode's cache (``donate_argnums``); a prefill's cache
+is its step's output there, which that sum leaves out.  The peak on the
+reference's terms (``peak_reference_terms``, the roofline's
+``peak_memory_per_device``) leaves out what those donations alias
+(``DONATED``): the donated arguments (``donated_bytes``; a prefill's cache,
+``cache_bytes``, is one) and the trace's allocations that the outputs
+replacing them hold when the step returns, found by their storage;
+``peak_holders`` names the largest allocations live at it.
 
 Each (arch × shape × mesh) cell is recorded, skipped ones (``runnable``)
 with their reason and failed ones as ``FAIL: <reason>``.  The output
@@ -128,6 +135,14 @@ def _mesh_name(mesh) -> str:
 
 def _prefill_max_seq(shape: ShapeSpec) -> int:
     return shape.seq_len + 256
+
+
+# The reference donates the train state and a decode's cache
+# (``donate_argnums``), and a prefill's cache is its step's output: its
+# peak counts none of them.  Kind → {argument index: index of the output
+# that replaces it}; a prefill's cache is the last argument, written in
+# place and returned.
+DONATED = {"train": {0: 0, 1: 1}, "prefill": {-1: 1}, "decode": {1: 1}}
 
 
 def _step_and_args(cfg, shape: ShapeSpec, opt, params, opt_state, specs,
@@ -645,11 +660,13 @@ def _ensure_view_rule() -> bool:
     return True
 
 
-def _sharded_run(step, args):
+def _sharded_run(step, args, replaced=()):
     """Run ``step`` on DTensor arguments under ``ShardedTrace``; plain
     tensors the step makes itself count as replicated → (the trace, the
     ops run again on replicated inputs by name: their count, and the bytes
-    a device holds of the inputs they gathered)."""
+    a device holds of the inputs they gathered).  The trace's ``replacing``
+    names the allocations that the step's outputs numbered in ``replaced``
+    hold when it returns."""
     from torch.distributed.tensor.experimental import implicit_replication
     _ensure_flip_rule()
     _ensure_view_rule()
@@ -663,11 +680,44 @@ def _sharded_run(step, args):
     try:
         with implicit_replication(), trace, gaps:
             out = step(*args)
+        trace.replacing = trace.handles_of(leaves([out[i] for i in replaced]))
         del out
     finally:
         if collecting:
             gc.enable()
     return trace, gaps.replicated, gaps.replicated_bytes
+
+
+def _local_bytes(tree) -> int:
+    """The bytes of the local shards of the DTensors in ``tree``."""
+    return sum(t.to_local().numel() * t.element_size() for t in leaves(tree))
+
+
+def traced_memory(step, args, donated: dict) -> tuple:
+    """``step`` run on its DTensor ``args`` under the trace
+    (``_sharded_run``) → (the trace, the ops run replicated: their counts
+    and bytes, the memory record).  ``donated`` maps an argument's index to
+    the index of the output that replaces it (``DONATED``).  The record:
+    the local bytes of the arguments (``argument_bytes``) and of the
+    donated ones (``donated_bytes``), the trace's high-water mark
+    (``peak_live_bytes``), ``footprint_bytes`` (the two sums: what a device
+    holds with nothing donated), and ``peak_reference_terms``: the
+    reference's argument + temp - alias, the arguments but the donated ones
+    plus the high-water mark of the trace's allocations but those the
+    replacing outputs hold (under donation they share the donated
+    buffers), with ``peak_holders``, the largest allocations live at it."""
+    arg_bytes = _local_bytes(args)
+    donated_bytes = _local_bytes([args[i] for i in donated])
+    trace, replicated, replicated_bytes = _sharded_run(
+        step, args, tuple(donated.values()))
+    kept = trace.replacing
+    return trace, replicated, replicated_bytes, {
+        "argument_bytes": arg_bytes, "donated_bytes": donated_bytes,
+        "peak_live_bytes": trace.peak_live_bytes,
+        "footprint_bytes": arg_bytes + trace.peak_live_bytes,
+        "peak_reference_terms": arg_bytes - donated_bytes
+        + trace.peak_without(kept),
+        "peak_holders": trace.holders_at_peak(kept)}
 
 
 def _placed_cache(cfg, batch: int, max_seq: int, mesh) -> dict:
@@ -729,10 +779,9 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
         if shape.kind == "prefill" else None
     _, d_args = _step_and_args(cfg, shape, opt, d_params, d_opt, d_inputs,
                                d_cache)
-    local_bytes = lambda tree: sum(t.to_local().numel() * t.element_size()
-                                   for t in leaves(tree))
-    arg_bytes = local_bytes(d_args)
-    trace, replicated, replicated_bytes = _sharded_run(step, d_args)
+    trace, replicated, replicated_bytes, memory = traced_memory(
+        step, d_args, DONATED[shape.kind])
+    memory["cache_bytes"] = _local_bytes(d_cache or {})
     t_trace = time.time() - t0
     coll = trace.stats
 
@@ -745,7 +794,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
         flops_per_device=cost.flops / chips,
         bytes_per_device=cost.bytes / chips,
         collective_bytes=float(coll.total_bytes),
-        peak_memory_per_device=float(arg_bytes + trace.peak_live_bytes),
+        peak_memory_per_device=float(memory["peak_reference_terms"]),
         model_flops=mf,
         collectives={"bytes": coll.bytes_by_kind,
                      "count": coll.count_by_kind})
@@ -753,9 +802,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool,
         "arch": arch, "shape": shape.name, "mesh": mesh_name,
         "status": "ok", "sharding_mode": sharding_mode,
         "cost_s": round(t_cost, 1), "trace_s": round(t_trace, 1),
-        "memory": {"argument_bytes": arg_bytes,
-                   "cache_bytes": local_bytes(d_cache or {}),
-                   "peak_live_bytes": trace.peak_live_bytes},
+        "memory": memory,
         "replicated_calls": replicated,
         "replicated_bytes": replicated_bytes,
         "global_cost": {"flops": cost.flops, "bytes": cost.bytes},
@@ -827,6 +874,8 @@ def main() -> None:
                           f"coll={rf['collective_bytes']:.3e}B "
                           f"bottleneck={rf['bottleneck']} "
                           f"mem/dev={rf['peak_memory_per_device']/2**30:.2f}"
+                          f"GiB footprint/dev="
+                          f"{entry['memory']['footprint_bytes']/2**30:.2f}"
                           f"GiB")
                     record(entry)
                 except Exception as e:

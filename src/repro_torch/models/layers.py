@@ -52,7 +52,8 @@ def rope_angles(positions: torch.Tensor, rotary_dim: int, theta: float):
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
-    """x (B,S,H,hd) with half-rotation convention; cos/sin (B,S,half)."""
+    """x (B,S,H,hd) with half-rotation convention; cos/sin (B,S,half), or
+    (1,S,half) broadcast over the batch."""
     half = cos.shape[-1]
     x1, x2 = x[..., :half], x[..., half:2 * half]
     c = cos[:, :, None, :].to(x.dtype)

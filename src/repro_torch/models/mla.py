@@ -45,10 +45,21 @@ def _scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
+def _latent(x, w):
+    """``x @ w`` into a latent (q's or the KV's), its pending sums done: on
+    a mesh that splits ``x``'s hidden dim the product comes out pending a
+    sum, and the up-projections that split the heads over the model axis
+    then took the heads whole (2.11 all-reduced a batch row's fp32 scores
+    over every head); a latent is small, so it is reduced here, as XLA's
+    partitioner places the reference's.  A plain tensor is as it was."""
+    from repro_torch.distributed.sharding import complete
+    return complete(x @ w.to(x.dtype))
+
+
 def _project_q(params, x, cfg, cos, sin):
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
-    qa = rms_norm(params["q_a_norm"], x @ params["wq_a"].to(x.dtype),
+    qa = rms_norm(params["q_a_norm"], _latent(x, params["wq_a"]),
                   cfg.norm_eps)
     q = (qa @ params["wq_b"].to(x.dtype)).reshape(
         B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
@@ -59,7 +70,7 @@ def _project_q(params, x, cfg, cos, sin):
 def compress_kv(params, x, cfg, cos, sin):
     """x → (c_kv (B,S,r), k_rope (B,S,rope)) — the cached latent."""
     m = cfg.mla
-    kv = x @ params["wkv_a"].to(x.dtype)
+    kv = _latent(x, params["wkv_a"])
     c_kv = rms_norm(params["kv_a_norm"], kv[..., :m.kv_lora_rank],
                     cfg.norm_eps)
     k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], cos, sin)
@@ -80,8 +91,9 @@ def mla_train(params, x, cfg, cos, sin):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
-    o = attention(q, k, v, causal=True, scale=_scale(cfg),
-                  chunk_q=cfg.attn_chunk_q)
+    from repro_torch.distributed.sharding import grad_as_value
+    o = grad_as_value(attention(q, k, v, causal=True, scale=_scale(cfg),
+                                chunk_q=cfg.attn_chunk_q))
     o = o.reshape(B, S, H * m.v_head_dim)
     return o @ params["wo"].to(x.dtype), (c_kv, k_rope)
 

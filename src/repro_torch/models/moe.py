@@ -102,6 +102,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
     ``dispatch_axes = (group_axis, expert_axis)``: groups shard over the
     data axis, experts over the model axis (the canonical MoE all-to-all)."""
+    from repro_torch.distributed.sharding import experts_as_weight
     B, S, d = x.shape
     xg = group_tokens(x, cfg)
     dispatch, gates, _, aux = moe_route(params["router"], xg, cfg)
@@ -110,11 +111,13 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
     if dispatch_axes is not None:
         ga, ea = dispatch_axes
         expert_in = _wsc(expert_in, (ga, ea, None, None))
+    expert_in = experts_as_weight(expert_in, params["we_gate"])
     h = F.silu(torch.einsum("gecd,edf->gecf", expert_in,
                             params["we_gate"].to(dt))) \
         * torch.einsum("gecd,edf->gecf", expert_in, params["we_up"].to(dt))
     expert_out = torch.einsum("gecf,efd->gecd", h,
                               params["we_down"].to(dt))        # (G,E,C,d)
+    expert_out = experts_as_weight(expert_out, params["we_down"])
     if dispatch_axes is not None:
         expert_out = _wsc(expert_out, (dispatch_axes[0], dispatch_axes[1],
                                        None, None))

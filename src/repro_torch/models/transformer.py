@@ -315,8 +315,9 @@ def encode(params, cfg: ModelConfig, frames, train: bool = False
     x = frames.to(cfg.adtype)
     if "frontend_proj" in params:
         x = x @ params["frontend_proj"].to(x.dtype)
-    B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    # Positions are one row, broadcast over the batch: a row a sequence
+    # would be whole over the batch on every device of a mesh.
+    pos = torch.arange(x.shape[1], device=x.device)[None]
     x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
     for layer_p in layers(params["enc_layers"], cfg.n_encoder_layers):
         x = _body(cfg, train, _encoder_layer, cfg, layer_p, x)
@@ -357,12 +358,12 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
     the training route (module docstring): the same values, a graph that
     autograd can differentiate through every layer."""
     require_family(cfg)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     x = with_vision(cfg, embed_tokens(params, cfg, tokens), vision_embed)
     aux = torch.zeros((), device=x.device)
     if cfg.family == "encdec":
         enc = encode(params, cfg, frames, train)
-        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        pos = torch.arange(S, device=x.device)[None]
         x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
         for layer_p in layers(params["layers"], cfg.n_layers):
             x = _body(cfg, train, lambda p, xc: whisper_layer(
@@ -372,7 +373,7 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embed=None,
         for layer_p in layers(params["layers"], cfg.n_layers):
             x = _body(cfg, train, _ssm_layer, cfg, layer_p, x, train)
     else:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None]   # (1, S)
         cos, sin = _angles(cfg, positions, mrope_positions)
         if cfg.family == "griffin":
             pattern = cfg.griffin.pattern
@@ -451,12 +452,12 @@ def _mtp_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     representation of (hidden_t, embed(token_{t+1})) through one extra
     layer; the hidden state is the embedding, as in the JAX package."""
     tokens, labels = batch["tokens"], batch["labels"]
-    B, S = tokens.shape
+    S = tokens.shape[1]
     x = maybe_shard_activations(cfg, embed_tokens(params, cfg, tokens))
     nxt = _roll_left(x)
     h = torch.cat([x, nxt], dim=-1) @ params["mtp"]["proj"].to(x.dtype)
     h = maybe_shard_activations(cfg, h)
-    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    pos = torch.arange(S, device=x.device)[None]
     cos, sin = _angles(cfg, pos)
     lp = params["mtp"]["layer"]
     out, _ = self_attention(cfg, lp["attn"],

@@ -37,6 +37,20 @@ _KINDS = {"all_gather_into_tensor": "all-gather",
           "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
 
 
+# Ops whose output the dry run's meta tensors give a storage of its own but
+# a device's would not: the wrapper that lets autograd reach a collective's
+# result holds that result (its meta kernel is ``empty_like``).
+_WRAPS = {"_wrap_tensor_autograd"}
+
+
+def _storage_key(t):
+    """The address of the storage that holds ``t``, or None."""
+    try:
+        return t.untyped_storage()._cdata
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
 def _nbytes(x) -> int:
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
@@ -67,18 +81,120 @@ class ShardedTrace(TorchDispatchMode):
     collective's result bytes by kind (``stats``), and the high-water mark
     of the bytes of local tensors that ops allocate while it is on
     (``peak_live_bytes``): an output that aliases no input is counted from
-    its op until the tensor is freed.  The fake tensors of the whole global
-    shape that DTensor's sharding propagation runs each op on, to learn its
-    output's shape, are no device's bytes and are not counted."""
+    its op until the last tensor of its storage that an op gave is freed
+    (a storage once, whatever tensors hold it: a collective's result and
+    the wrapper that lets autograd reach it, a view).  The fake tensors of
+    the whole global shape that DTensor's sharding propagation runs each op
+    on, to learn its output's shape, are no device's bytes and are not
+    counted.
+
+    Each counted storage gets a handle, and ``log`` keeps the run's
+    allocations and frees in order (handle, +bytes / -bytes):
+    ``handles_of`` names the storages that tensors still alive hold, and
+    ``peak_without`` gives the high-water mark with some of them left out
+    (the outputs a donated argument's buffer would hold)."""
 
     def __init__(self):
         super().__init__()
         self.stats = CollectiveStats()
         self.live_bytes = 0
         self.peak_live_bytes = 0
+        self.log: list = []
+        self.allocs: dict = {}              # handle -> (op, shape, dtype)
+        self._handle: dict = {}             # storage key -> handle, live
+        self._held: dict = {}               # handle -> [bytes, tensors, keys]
+        # Handles of the outputs that replace donated arguments (the dry
+        # run's ``_sharded_run`` sets them when the step returns).
+        self.replacing: set = set()
 
-    def _free(self, nbytes: int) -> None:
-        self.live_bytes -= nbytes
+    def _count(self, o, name: str, holds=None) -> None:
+        """Count ``o``, a fresh output of op ``name``, with the storage it
+        shares with a counted tensor (``holds``, the tensor it wraps)."""
+        keys = {_storage_key(o)}
+        if holds is not None:
+            keys.add(_storage_key(holds))
+        keys.discard(None)
+        handle = next((self._handle[k] for k in keys if k in self._handle),
+                      None)
+        if handle is None:
+            n = _nbytes(o)
+            handle = len(self.log)
+            self.live_bytes += n
+            self.log.append((handle, n))
+            self.allocs[handle] = (name, tuple(o.shape),
+                                   str(o.dtype).removeprefix("torch."))
+            self._held[handle] = [n, 0, set()]
+        held = self._held[handle]
+        held[1] += 1
+        held[2] |= keys
+        self._handle.update(dict.fromkeys(keys, handle))
+        weakref.finalize(o, self._free, handle)
+
+    def _free(self, handle: int) -> None:
+        held = self._held[handle]
+        held[1] -= 1
+        if held[1]:
+            return
+        self.live_bytes -= held[0]
+        self.log.append((handle, -held[0]))
+        del self._held[handle]
+        for k in held[2]:
+            if self._handle.get(k) == handle:
+                del self._handle[k]
+
+    def handles_of(self, tensors) -> set:
+        """The handles of the live storages that hold ``tensors`` (plain
+        tensors or views of them; a DTensor by its local shard); a tensor
+        whose storage the trace did not count has none."""
+        from torch.distributed.tensor import DTensor
+        out = set()
+        for t in tensors:
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            key = _storage_key(t) if isinstance(t, torch.Tensor) else None
+            if key in self._handle:
+                out.add(self._handle[key])
+        return out
+
+    def peak_without(self, handles: set) -> int:
+        """The high-water mark of the live bytes, the allocations named by
+        ``handles`` left out; ``peak_without(set())`` is
+        ``peak_live_bytes``."""
+        return self._high_water(handles)[0]
+
+    def holders_at_peak(self, handles: set, top: int = 8) -> list:
+        """The allocations live at ``peak_without(handles)``'s mark, by
+        (op, shape, dtype), the ``top`` largest in bytes: ``[op, shape,
+        dtype, bytes each, count]``."""
+        _, at = self._high_water(handles)
+        live: dict = {}
+        for h, n in self.log[:at + 1]:
+            if h in handles:
+                continue
+            if n > 0:
+                live[h] = n
+            else:
+                live.pop(h, None)
+        groups: dict = {}
+        for h, n in live.items():
+            key = self.allocs[h] + (n,)
+            groups[key] = groups.get(key, 0) + 1
+        ranked = sorted(groups.items(), key=lambda kv: -kv[0][3] * kv[1])
+        return [[op, list(shape), dtype, n, k]
+                for (op, shape, dtype, n), k in ranked[:top]]
+
+    def _high_water(self, handles: set) -> tuple:
+        """(the high-water mark without ``handles``, the index in ``log``
+        of the event that reached it, -1 if none did)."""
+        live = peak = 0
+        at = -1
+        for i, (h, n) in enumerate(self.log):
+            if h in handles:
+                continue
+            live += n
+            if live > peak:
+                peak, at = live, i
+        return peak, at
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -96,9 +212,7 @@ class ShardedTrace(TorchDispatchMode):
         for o, new in zip(outs, fresh):
             if new and isinstance(o, torch.Tensor) and \
                     not isinstance(o, FakeTensor):
-                n = _nbytes(o)
-                self.live_bytes += n
-                weakref.finalize(o, self._free, n)
+                self._count(o, name, args[0] if name in _WRAPS else None)
         self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
         return out
 

@@ -80,8 +80,10 @@ def test_smoke_cell_lowers_on_a_fake_mesh(mesh, arch, kind):
     assert rf["collective_bytes"] > 0
     assert rf["collective_bytes"] == sum(rf["collectives"]["bytes"].values())
     mem = entry["memory"]
-    assert rf["peak_memory_per_device"] == mem["argument_bytes"] + \
+    assert mem["footprint_bytes"] == mem["argument_bytes"] + \
         mem["peak_live_bytes"] and mem["peak_live_bytes"] > 0
+    assert rf["peak_memory_per_device"] == mem["peak_reference_terms"] \
+        <= mem["footprint_bytes"]
     assert rf["bottleneck"] in ("compute", "memory", "collective")
     assert set(entry["replicated_calls"]) <= dryrun.REPLICABLE
 
@@ -484,7 +486,8 @@ def test_production_cell_peak_near_the_reference(monkeypatch):
     code = ("import json\n"
             "from repro.launch.dryrun import lower_cell\n"
             "e = lower_cell('qwen3-0.6b', 'train_4k', False)\n"
-            "print('REF ' + json.dumps(e['roofline']))\n")
+            "print('REF ' + json.dumps(e['roofline']))\n"
+            "print('MEM ' + json.dumps(e['memory_analysis']))\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600,
@@ -495,6 +498,12 @@ def test_production_cell_peak_near_the_reference(monkeypatch):
     want = json.loads(lines[-1][4:])["peak_memory_per_device"]
     got = entry["roofline"]["peak_memory_per_device"]
     assert want / 4 <= got <= 4 * want, (got, want)
+    # The reference's arguments and the bytes its donation aliases are the
+    # port's arguments and the bytes its peak leaves out as donated.
+    mem = json.loads([ln for ln in res.stdout.splitlines()
+                      if ln.startswith("MEM ")][-1][4:])
+    assert entry["memory"]["argument_bytes"] == mem["argument_size_in_bytes"]
+    assert entry["memory"]["donated_bytes"] == mem["alias_size_in_bytes"]
     vocab, d_model = 151936, 1024
     assert shapes and all(s == (vocab, d_model) for s in shapes
                           if vocab in s), [s for s in shapes if vocab in s]
