@@ -2248,21 +2248,32 @@ REF_DRYRUN_MULTI = {"qwen3-0.6b": (9.652081464e9, 3.7579382824e10),
                     "mamba2-1.3b": (4.0878689856e10, 5.6008665388e10)}
 # The serving cells of phase 13 (f) on 16 x 16: ``python -m
 # repro.launch.dryrun --arch <arch> --shape <shape> --mesh single`` on the
-# CPU (peak bytes a device, collective bytes), and the bound each is held
-# to (ROADMAP C.12): the prefill's peak, the decode's collectives.
+# CPU (peak bytes a device, collective bytes), and the bounds each is held
+# to (ROADMAP C.12): the prefill's footprint, the decode's collectives,
+# and the prefills' peak on the reference's terms within 2x the
+# reference's (its heads split over the model axis: each device holds
+# its own query heads' scores).
+# ``python -m repro.launch.dryrun --arch phi3-mini-3.8b --shape
+# prefill_32k --mesh single`` on the CPU (peak bytes a device, collective
+# bytes).
+REF_PHI3_PREFILL_PEAK, REF_PHI3_PREFILL_COLL = 4.272265576e9, 5.234491392e10
 REF_DRYRUN_SERVING = {
     "dryrun_qwen3_prefill": ("qwen3-0.6b", "prefill_32k",
                              (1.233248072e9, 2.0509360128e10)),
     "dryrun_phi3_decode": ("phi3-mini-3.8b", "decode_32k",
-                           (1.8068707848e10, 1.2684544e7))}
+                           (1.8068707848e10, 1.2684544e7)),
+    "dryrun_phi3_prefill": ("phi3-mini-3.8b", "prefill_32k",
+                            (REF_PHI3_PREFILL_PEAK, REF_PHI3_PREFILL_COLL))}
 SERVING_BOUND = {"dryrun_qwen3_prefill": ("footprint_bytes", 1.7e10),
                  "dryrun_phi3_decode": ("collective_bytes", 1e10)}
+SERVING_PEAK_BOUND = {"dryrun_qwen3_prefill": 2.0,
+                      "dryrun_phi3_prefill": 2.0}
 # Phase 13 (f)'s bound on a two-pod cell's peak over the reference's:
-# mamba2-1.3b's is 1.5x, as the one-pod cell's; qwen3-0.6b's KV-head views
-# still run replicated over the model axis there (its batch of 8 rows a
-# device row cannot take the 16-wide axis: ROADMAP C.12), so its bound
-# only guards the batch split over pod and data (54x before it was kept).
-MULTI_PEAK_BOUND = {"qwen3-0.6b": 5.0, "mamba2-1.3b": 1.5}
+# mamba2-1.3b's is 1.5x, as the one-pod cell's; qwen3-0.6b's, 1.5x since
+# its attention's heads stay split over the model axis (ROADMAP C.12:
+# its batch of 8 rows a device row cannot take the 16-wide axis, and its
+# head views ran replicated; 5x before).
+MULTI_PEAK_BOUND = {"qwen3-0.6b": 1.5, "mamba2-1.3b": 1.5}
 # The bounds above hold each cell's footprint (``memory.footprint_bytes``:
 # its arguments plus the trace's high-water mark, nothing donated).  Two
 # train cells are held on the reference's terms (``memory.
@@ -2276,6 +2287,10 @@ REF_DRYRUN_QWEN2_MOE = 1.00991119568e11
 QWEN2_MOE_BOUND = 2.0
 DEEPSEEK_2L_BOUND = 5e10
 DEEPSEEK_WE_DOWN = (256, 2048, 7168)
+# qwen2-vl-72b x train_4k x 16 x 16 at 2 layers: no stacked MLP gradient
+# whole in fp32 at its peak, (2, 8192, 29568) or (2, 29568, 8192) (ROADMAP
+# C.18: the full cell held (80, 29568, 8192) pending a sum, all-reduced).
+QWEN2_VL_MLP = ((2, 8192, 29568), (2, 29568, 8192))
 
 
 def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool,
@@ -2543,6 +2558,8 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         "dryrun_qwen2_moe": ("qwen2-moe-a2.7b", "train_4k", False, False),
         "dryrun_deepseek_2l": ("deepseek-v3-671b", "train_4k", False, False,
                                {"n_layers": 2}),
+        "dryrun_qwen2_vl_2l": ("qwen2-vl-72b", "train_4k", False, False,
+                               {"n_layers": 2}),
         **{key: (arch, shape, False, False)
            for key, (arch, shape, _) in REF_DRYRUN_SERVING.items()}})
     for key, cell in cells.items():
@@ -2592,10 +2609,18 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         res[key]["peak_over_reference"] = mem["footprint_bytes"] / ref_peak
         res[key]["collectives_over_reference"] = \
             rf["collective_bytes"] / ref_coll
-        metric, bound = SERVING_BOUND[key]
-        got = mem[metric] if metric in mem else rf[metric]
-        if got > bound:
-            fail(f"dry-run cell {key}: {metric} {got} B, over {bound}")
+        res[key]["reference_terms_over_reference"] = \
+            mem["peak_reference_terms"] / ref_peak
+        if key in SERVING_BOUND:
+            metric, bound = SERVING_BOUND[key]
+            got = mem[metric] if metric in mem else rf[metric]
+            if got > bound:
+                fail(f"dry-run cell {key}: {metric} {got} B, over {bound}")
+        if key in SERVING_PEAK_BOUND and mem["peak_reference_terms"] > \
+                SERVING_PEAK_BOUND[key] * ref_peak:
+            fail(f"dry-run cell {key}: peak on the reference's terms "
+                 f"{mem['peak_reference_terms']} B, over "
+                 f"{SERVING_PEAK_BOUND[key]}x the reference's {ref_peak}")
     # Two train cells on the reference's terms (ROADMAP C.16, C.17).
     cell = res["dryrun_qwen2_moe"]
     peak = cell["memory"]["peak_reference_terms"]
@@ -2612,6 +2637,11 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         fail(f"dry-run cell dryrun_deepseek_2l: peak on the reference's "
              f"terms {peak} B (bound {DEEPSEEK_2L_BOUND}), we_down whole at "
              f"it: {whole}")
+    whole = [h for h in res["dryrun_qwen2_vl_2l"]["memory"]["peak_holders"]
+             if tuple(h[1]) in QWEN2_VL_MLP and h[2] == "float32"]
+    if whole:
+        fail(f"dry-run cell dryrun_qwen2_vl_2l: MLP gradients whole at its "
+             f"peak: {whole}")
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -3666,7 +3696,8 @@ def main() -> None:
         f"{scaleout['dryrun_cell']['view_rule_registered']}")
     for key in ("dryrun_cell", "dryrun_mamba2", "dryrun_mamba2_multi",
                 "dryrun_qwen3_multi", "dryrun_qwen2_moe",
-                "dryrun_deepseek_2l", *REF_DRYRUN_SERVING):
+                "dryrun_deepseek_2l", "dryrun_qwen2_vl_2l",
+                *REF_DRYRUN_SERVING):
         c = scaleout[key]
         ref = REF_DRYRUN_SERVING[key][2] if key in REF_DRYRUN_SERVING \
             else (REF_DRYRUN_PEAK, REF_DRYRUN_COLLECTIVES) \
@@ -3679,11 +3710,15 @@ def main() -> None:
         elif "peak_over_reference" in c:
             over = (f" (footprint {c['peak_over_reference']:.4f}x and "
                     f"collectives {c['collectives_over_reference']:.4f}x the "
-                    f"reference's {ref[0]} B and {ref[1]} B)")
+                    f"reference's {ref[0]} B and {ref[1]} B"
+                    + (f"; on the reference's terms "
+                       f"{c['reference_terms_over_reference']:.4f}x"
+                       if "reference_terms_over_reference" in c else "")
+                    + ")")
         mem = c["memory"]
         cache = mem.get("cache_bytes")
         say(f"dry-run cell: {c['arch']} x {c['shape']} x {c['mesh']}"
-            + (" (2 layers)" if key == "dryrun_deepseek_2l" else "") +
+            + (" (2 layers)" if key.endswith("_2l") else "") +
             f": peak on the reference's terms "
             f"{mem['peak_reference_terms']:.10e} B a device, footprint "
             f"{mem['footprint_bytes']:.10e} B"

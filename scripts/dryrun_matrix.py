@@ -1,0 +1,97 @@
+"""The dry run's whole matrix (every arch x shape x mesh), one process a
+cell, several at once, then one table of the records.
+
+    PYTHONPATH=src python scripts/dryrun_matrix.py [--jobs 8]
+        [--src src] [--out experiments/dryrun_matrix]
+
+Each cell runs ``python -m repro_torch.launch.dryrun --arch A --shape S
+--mesh M --out <out>/<A>_<S>_<M>.json`` with ``--src`` first on its
+``PYTHONPATH`` (another checkout's ``src`` measures that tree: a parent
+and its change in one run).  A cell that exists already is not run again.
+The table gives, a device, the peak on the reference's terms, the
+footprint and the collective bytes of each cell, its status where it is
+not ``ok``, and any op run replicated; the last line counts the cells by
+status (``ok``, SKIP, FAIL).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ARCHS = ["qwen2-vl-72b", "llama3-8b", "qwen3-0.6b", "phi3-medium-14b",
+         "phi3-mini-3.8b", "recurrentgemma-9b", "mamba2-1.3b",
+         "qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-large-v3"]
+SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+MESHES = ["single", "multi"]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--jobs", type=int, default=8)
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
+                                         / "src"))
+    ap.add_argument("--out", default="experiments/dryrun_matrix")
+    ap.add_argument("--timeout", type=float, default=3000.0)
+    args = ap.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join(
+               [os.path.abspath(args.src)]
+               + [p for p in os.environ.get("PYTHONPATH", "").split(
+                   os.pathsep) if p])}
+    todo = [(a, s, m) for a in ARCHS for s in SHAPES for m in MESHES
+            if not os.path.exists(os.path.join(args.out, f"{a}_{s}_{m}.json"))]
+    running, t0 = {}, time.time()
+    while todo or running:
+        while todo and len(running) < args.jobs:
+            a, s, m = todo.pop(0)
+            path = os.path.join(args.out, f"{a}_{s}_{m}")
+            with open(path + ".log", "w") as log:
+                running[(a, s, m)] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", a, "--shape", s, "--mesh", m,
+                     "--out", path + ".json.part"],
+                    stdout=log, stderr=subprocess.STDOUT, env=env)
+        for key, proc in list(running.items()):
+            if proc.poll() is None and time.time() - t0 < args.timeout:
+                continue
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            path = os.path.join(args.out, "_".join(key))
+            if os.path.exists(path + ".json.part"):
+                os.replace(path + ".json.part", path + ".json")
+            del running[key]
+        time.sleep(1.0)
+    counts, rows = {}, []
+    for a in ARCHS:
+        for s in SHAPES:
+            for m in MESHES:
+                path = os.path.join(args.out, f"{a}_{s}_{m}.json")
+                recs = json.load(open(path)) if os.path.exists(path) else \
+                    [{"status": "FAIL: no record"}]
+                r = recs[-1]
+                status = r["status"]
+                kind = "ok" if status == "ok" else status.split("(")[0][:4]
+                counts[kind] = counts.get(kind, 0) + 1
+                if status != "ok":
+                    rows.append(f"{a} x {s} x {m}: {status[:60]}")
+                    continue
+                mem = r["memory"]
+                rows.append(
+                    f"{a} x {s} x {m}: {mem['peak_reference_terms']:.4e} / "
+                    f"{mem['footprint_bytes']:.4e} / "
+                    f"{r['roofline']['collective_bytes']:.4e}"
+                    + (f" replicated {r['replicated_calls']}"
+                       if r["replicated_calls"] else ""))
+    print("\n".join(rows))
+    print(f"cells: {counts} in {time.time() - t0:.0f} s")
+
+
+if __name__ == "__main__":
+    main()

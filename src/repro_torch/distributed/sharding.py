@@ -391,6 +391,221 @@ def attend_on_shards(attend, q, arena_k, arena_v, table, *rows, **kw):
                               stride=contiguous_strides(shape))
 
 
+def split_heads(t, n: int, heads: int):
+    """``t`` (B,S,n*d) viewed as (B,S,n,d), the K, V or Q of a layer of
+    ``heads`` query heads.  A DTensor whose last dim is split over mesh
+    dims whose sizes do not divide ``n`` but divide ``heads`` (qwen3-0.6b's
+    8 KV heads on a 16-wide model axis, recurrentgemma-9b's one) is first
+    moved to split its sequence there (an all-to-all): no torch views such
+    a split as heads, and a refused view runs replicated in the dry run,
+    the K/V whole on every device; ``attend_on_heads`` then splits the
+    query heads.  Plain tensors, DTensors whose split ``n`` divides, and
+    layers whose query heads the split does not divide (whisper's 20 on
+    16), are viewed as they are."""
+    from torch.distributed.tensor import DTensor, Shard
+    shape = (*t.shape[:2], n, t.shape[-1] // n)
+    if isinstance(t, DTensor):
+        mesh, last = t.device_mesh, t.dim() - 1
+        on_last = [i for i, p in enumerate(t.placements)
+                   if type(p) is Shard and p.dim == last]
+        across = math.prod(mesh.size(i) for i in on_last)
+        on_seq = math.prod(mesh.size(i) for i, p in enumerate(t.placements)
+                           if type(p) is Shard and p.dim == 1)
+        if n % across and heads % across == 0 and \
+                t.shape[1] % (across * on_seq) == 0:
+            t = _to(t, [Shard(1) if i in on_last else p
+                        for i, p in enumerate(t.placements)])
+    return t.reshape(shape)
+
+
+def _as_dtensor(t, mesh):
+    """``t`` itself if a DTensor, else ``t`` replicated on ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _local_shard(t, want, split):
+    """``t`` placed as ``want`` → its local tensor, for a computation that
+    each device runs on its own shards, split over the mesh dims where
+    ``split`` holds a ``Shard``: on such a mesh dim the gradient of an input
+    it leaves replicated is each device's part of a sum (``Partial``)."""
+    from torch.distributed.tensor import Partial
+    t = _to(t, want)
+    return t.to_local(grad_placements=[
+        Partial() if p.is_replicate() and not s.is_replicate() else p
+        for p, s in zip(want, split)])
+
+
+def _from_local(local, mesh, placements, shape):
+    """The contiguous DTensor of global ``shape`` whose local tensor is
+    ``local`` (made contiguous: a product's output may be a permuted view,
+    which a later view of the DTensor could not take)."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(local.contiguous(), mesh, tuple(placements),
+                              run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def _rows_and_heads(ts, head_dim: int):
+    """Placements for a computation that each device runs on its own batch
+    rows and heads of the DTensors ``ts`` (the first gives the shape): each
+    mesh dim that splits the batch (dim 0) of any of them keeps that split
+    where the batch divides it, each other mesh dim splits the heads
+    (``head_dim``) where they divide further, and any left replicates →
+    those placements, or None where no mesh dim splits the heads and some
+    mesh dim replicates (whisper's 20 heads on a 16-wide model axis), or
+    nothing is split at all (a mesh of one device): there the products stay
+    as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import DTensor
+    t, want, rows, across = ts[0], [], 1, 1
+    for i in range(t.device_mesh.ndim):
+        n = t.device_mesh.size(i)
+        if n == 1:                                 # no split at all
+            want.append(Replicate())
+        elif any(isinstance(u, DTensor) and u.placements[i] == Shard(0)
+                 for u in ts) and t.shape[0] % (rows * n) == 0:
+            want.append(Shard(0))
+            rows *= n
+        elif t.shape[head_dim] % (across * n) == 0:
+            want.append(Shard(head_dim))
+            across *= n
+        else:
+            want.append(Replicate())
+    whole = any(p.is_replicate() and t.device_mesh.size(i) > 1
+                for i, p in enumerate(want))
+    return None if across == 1 and (rows == 1 or whole) else want
+
+
+def attend_on_heads(attend, q, k, v, **kw):
+    """``attend(q, k, v, **kw)``, a prefill or training attention (q
+    (B,Sq,H,d); k, v (B,Skv,KH,*) → (B,Sq,H,vd)), on each device's batch
+    rows and query heads where q is a DTensor (``_rows_and_heads``: the
+    batch split where any of q, k, v splits it and it divides, the heads
+    on every other mesh dim where they divide): q, k and v are placed so,
+    each device attends with plain tensors, and the output comes back
+    placed so.
+    Where the split does not divide the KV heads (qwen3-0.6b's 8 on a
+    16-wide model axis, recurrentgemma-9b's one), each query head takes its
+    own copy of its KV head (head h reads h // G) before k and v move onto
+    the heads, from a split of the sequence: a device holds the K/V of its
+    own query heads only, never the whole K/V.  XLA's partitioner tiles the
+    reference's (KV head, group) dims over the model axis likewise.
+    DTensor itself flattens the split batch and head dims into one batch
+    of products, which it cannot place (the batch would be split inside
+    the flattened dim), and the dry run ran each such view replicated, a
+    chunk's fp32 scores for every head on each device.  Plain tensors, and
+    q whose heads no mesh dim can split where another replicates
+    (whisper's 20 heads on 16), go to ``attend`` as they are."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(q, DTensor):
+        return attend(q, k, v, **kw)
+    want = _rows_and_heads([q, k, v], 2)
+    if want is None:
+        return attend(q, k, v, **kw)
+    mesh, H = q.device_mesh, q.shape[2]
+    across = math.prod(mesh.size(i) for i, p in enumerate(want)
+                       if p == Shard(2))
+
+    def per_query_head(t):
+        t = _as_dtensor(t, mesh)
+        B, S, n, d = t.shape
+        if n == H or n % across == 0:
+            return t
+        # Split the sequence where the heads will be, so that each device
+        # copies 1/across of the expanded K/V, then expand (KH, G) → H.
+        seq = [Shard(1) if w == Shard(2) and p.is_replicate() else p
+               for p, w in zip(t.placements, want)]
+        if S % math.prod(mesh.size(i) for i, p in enumerate(seq)
+                         if p == Shard(1)) == 0:
+            t = _to(t, seq)
+        return t[:, :, :, None].expand(B, S, n, H // n, d).reshape(
+            B, S, H, d)
+
+    out = attend(_local_shard(q, want, want),
+                 _local_shard(per_query_head(k), want, want),
+                 _local_shard(per_query_head(v), want, want), **kw)
+    return _from_local(out, mesh, want, (*q.shape[:3], v.shape[-1]))
+
+
+def rows_on_shards(fn, x, *ws):
+    """``fn(x, *ws)``, a product of rows ``x`` with whole weights ``ws``
+    whose output has ``x``'s rows (dim 0), on each device's rows where
+    ``x`` is a DTensor: ``x`` split on its rows over every mesh dim where
+    they divide (a split of another dim moves there), replicated over the
+    others; each device runs ``fn`` with plain tensors, the weights'
+    gradients each device's part of a sum.  The MoE's experts where the
+    model axis does not divide them (qwen2-moe-a2.7b's 60 on 16): DTensor
+    split the expert inputs on their hidden dim, and the experts' products
+    flattened their split groups with the slots of a permuted tensor, a
+    view the dry run ran replicated.  Plain tensors, and weights split on
+    any mesh dim (experts split as their weights), go to ``fn`` as they
+    are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or any(
+            isinstance(w, DTensor) and not all(
+                p.is_replicate() for p in w.placements) for w in ws):
+        return fn(x, *ws)
+    mesh, want, rows = x.device_mesh, [], 1
+    for i, p in enumerate(x.placements):
+        n = mesh.size(i)
+        if p == Shard(0) or x.shape[0] % (rows * n) == 0:
+            want.append(Shard(0))
+            rows *= n
+        else:
+            want.append(Replicate())
+    if rows == 1:
+        return fn(x, *ws)
+    whole = [Replicate()] * mesh.ndim
+    out = fn(_to(x, want).to_local(), *(_local_shard(
+        grad_as_value(_as_dtensor(w, mesh)), whole, want) for w in ws))
+    return _from_local(out, mesh, want, (out.shape[0] * rows,
+                                         *out.shape[1:]))
+
+
+def scan_on_heads(scan, x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
+    """``scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)``, the
+    chunked SSD (x (b,l,h,p), dt (b,l,h), A (h,), Bm and Cm (b,l,n) shared
+    by every head, init_state (b,h,p,n) or None → (y (b,l,h,p),
+    final_state (b,h,p,n))), on each device's batch rows and heads where x
+    is a DTensor, placed as ``attend_on_heads`` places q: every operand is
+    split so (Bm and Cm only on the batch), each device scans with plain
+    tensors, and y and the state come back split so.  DTensor flattens
+    the split batch, chunk and head dims of the SSD's products into one,
+    which it cannot place, and the dry run ran each such view replicated,
+    every head's (b, chunk, h, c, c) decays on each device.  Plain tensors,
+    and x left whole by ``_rows_and_heads``, go to ``scan`` as they
+    are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+    want = _rows_and_heads([x], 2)
+    if want is None:
+        return scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+    mesh = x.device_mesh
+
+    def local(t, rows, heads):
+        """t's local shard, its dims ``rows`` and ``heads`` (or None) split
+        as x's batch and heads are."""
+        pl = [Shard(rows) if p == Shard(0) and rows is not None else
+              Shard(heads) if p == Shard(2) and heads is not None else
+              Replicate() for p in want]
+        return _local_shard(_as_dtensor(t, mesh), pl, want)
+
+    state = None if init_state is None else local(init_state, 0, 1)
+    y, last = scan(local(x, 0, 2), local(dt, 0, 2), local(A, None, 0),
+                   local(Bm, 0, None), local(Cm, 0, None), chunk=chunk,
+                   init_state=state)
+    b, _, h, p = x.shape
+    rows_heads = [Shard(1) if q == Shard(2) else q for q in want]
+    return (_from_local(y, mesh, want, x.shape),
+            _from_local(last, mesh, rows_heads, (b, h, p, last.shape[-1])))
+
+
 def contiguous_strides(shape) -> tuple:
     """The strides of a contiguous tensor of ``shape`` (without making one:
     a tensor made under the dry run's trace counts as allocated)."""
@@ -420,6 +635,93 @@ def vocab_parallel_input(x, w, vocab_dim: int):
                    else px for px, pw in zip(x.placements, w.placements)])
 
 
+def column_parallel_input(x, w):
+    """``x`` placed for a column-parallel product ``x @ w`` (the attention's,
+    the MLP's, the SSM's and the RG-LRU's input projections): on each mesh
+    dim that splits ``w``'s output (last) dim, ``x``'s batch (dim 0) split
+    further where it divides, else ``x`` whole there, as XLA's partitioner
+    places the reference's; its other mesh dims as they were.  A batch
+    split over the model axis
+    multiplies each device's rows by the gathered weight (a 256-row train
+    batch on 16 x 16; ``rows_weight``); a whole ``x`` gives the product
+    split on its output dim, so that its heads stay split (a prefill's 2
+    rows a data slice, a two-pod train batch's 8).  DTensor alone places
+    a product by the bytes its inputs move: given ``x`` split on its
+    hidden dim, it moved the weight onto that split and gave the product
+    pending a sum, every head on each device; given ``x`` split on its
+    sequence, it kept that split, and the next product's flatten of the
+    batch and the split sequence, which it cannot place, ran replicated in
+    the dry run.  A plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    last, rows, want = w.dim() - 1, 1, []
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        n = x.device_mesh.size(i)
+        if px == Shard(0) or (type(pw) is Shard and pw.dim == last
+                              and x.shape[0] % (rows * n) == 0):
+            want.append(Shard(0))
+            rows *= n
+        elif type(pw) is Shard and pw.dim == last:
+            want.append(Replicate())
+        else:
+            want.append(px)
+    return _to(x, want)
+
+
+def embed_on_shards(table, ids, dtype):
+    """``table[ids].to(dtype)`` (table (V, d), ids integers) where
+    ``table`` is a DTensor split on its vocab (dim 0) over one mesh dim and
+    whole on the others: each device looks the ids up in its own slice of
+    the vocab (the others give zeros), its rows split as the ids are, and
+    the sum over the vocab's mesh dim is completed (the rows whole over
+    the model axis, as the input projections take them; scattered over
+    the hidden dim instead, 2.11 placed the attention of heads that the
+    axis does not divide with collectives x145); the table's gradient
+    comes back split as the table, each device's part of a sum elsewhere.
+    XLA's partitioner masks each device's slice of the reference's gather
+    likewise.  DTensor gathered the whole table on every device, and
+    2.11's has no rule for ids split over two mesh dims on one dim (the
+    batch over pod and data): the dry run ran that gather again on ids
+    gathered over data, 16 rows of a prefill's embeddings on each device.
+    A plain tensor, and other placements, take ``table[ids].to(dtype)`` as
+    it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not (isinstance(table, DTensor) and isinstance(ids, DTensor)):
+        return table[ids].to(dtype)
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if len(vocab) != 1 or any(not p.is_replicate() for i, p in
+                              enumerate(table.placements) if i != vocab[0]):
+        return table[ids].to(dtype)
+    (v,), mesh = vocab, table.device_mesh
+    rows = [Replicate() if i == v or p.is_partial() else p
+            for i, p in enumerate(ids.placements)]
+    out_pl = [Partial() if i == v else p for i, p in enumerate(rows)]
+    local = _local_shard(table, table.placements, out_pl)
+    n = local.shape[0]
+    idx = _to(ids, rows).to_local() - mesh.get_coordinate()[v] * n
+    hit = (idx >= 0) & (idx < n)
+    out = torch.where(hit[..., None], local[idx.clamp(0, n - 1)], 0)
+    return complete(_from_local(out.to(dtype), mesh, out_pl,
+                                (*ids.shape, table.shape[1])))
+
+
+def rows_weight(x, w):
+    """``w`` whole on each mesh dim that splits both ``x``'s batch (dim 0)
+    and ``w``: the weight of a product ``x @ w`` that each device runs on
+    its own rows (a gather, whose backward reduce-scatters the gradient
+    onto ``w``'s split).  DTensor would place such a product by the bytes
+    its inputs move, and 2.11 moved ``x`` onto its hidden dim and the
+    weight onto its rows instead, and all-reduced the product whole.  A
+    plain tensor, or an ``x`` whose batch no mesh dim of ``w``'s split
+    splits, gives ``w`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return w
+    return _to(w, [Replicate() if px == Shard(0) and not pw.is_replicate()
+                   else pw for px, pw in zip(x.placements, w.placements)])
+
+
 def experts_as_weight(x, w, x_dim: int = 1, w_dim: int = 0):
     """``x`` with its expert dim ``x_dim`` split over each mesh dim that
     splits the expert weight ``w`` along its expert dim ``w_dim``, its
@@ -441,19 +743,108 @@ def experts_as_weight(x, w, x_dim: int = 1, w_dim: int = 0):
     return grad_as_value(_to(x, want))
 
 
-def grad_as_value(t):
-    """``t`` itself, its gradient placed as ``t`` is when the backward
-    reaches it (a hook; a plain tensor, or one that needs no gradient, is
-    returned as it is): XLA places a cotangent as its primal.  2.11's
-    DTensor kept MLA's attention-output gradient pending a sum over the
-    model axis through the attention's backward, every head of a batch
-    row's fp32 scores on each device (``models/mla.py``)."""
+def rows_viewable(t, rows: int):
+    """``t`` (rows first, a hidden dim last) placed so that its rows view
+    back as ``rows`` rows: each mesh dim that splits its rows keeps that
+    split while ``rows`` divides it, and splits its last dim instead where
+    it does not (replicating where that does not divide either); every
+    other mesh dim keeps its placement.  A plain tensor is returned as it
+    is.  The MoE's combined output (``models/moe.py``): DTensor splits its
+    groups over the model axis too, and no torch views that split back as
+    (batch, sequence) at a batch of fewer rows than devices (2 rows a data
+    slice in a prefill)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    want, split, across, last = [], 1, 1, t.dim() - 1
+    for i, p in enumerate(t.placements):
+        n = t.device_mesh.size(i)
+        if p != Shard(0):
+            want.append(p)
+        elif rows % (split * n) == 0:
+            want.append(p)
+            split *= n
+        elif t.shape[last] % (across * n) == 0:
+            want.append(Shard(last))
+            across *= n
+        else:
+            want.append(Replicate())
+    return _to(t, want)
+
+
+def grad_rows_viewable(t, rows: int):
+    """``t`` itself, its gradient placed by ``rows_viewable`` when the
+    backward reaches it (a hook; a plain tensor, or one that needs no
+    gradient, is returned as it is): the MoE's grouped tokens, whose
+    gradient views back to the batch's."""
     from torch.distributed.tensor import DTensor
     if isinstance(t, DTensor) and t.requires_grad:
-        want = tuple(t.placements)
+        t.register_hook(lambda g: rows_viewable(g, rows)
+                        if isinstance(g, DTensor) else g)
+    return t
+
+
+def grad_as_value(t):
+    """``t`` itself, its gradient placed as ``t`` is when the backward
+    reaches it, whole on each mesh dim where ``t`` is a pending sum (a
+    hook; a plain tensor, or one that needs no gradient, is returned as it
+    is): XLA places a cotangent as its primal.  2.11's DTensor kept MLA's
+    attention-output gradient pending a sum over the model axis through
+    the attention's backward, every head of a batch row's fp32 scores on
+    each device (``models/mla.py``).  The output of a row-parallel product
+    (the attention's and the MLP's output projections) is a pending sum
+    whose gradient came back split on the sequence, and the backward's
+    flatten of the batch and that split, which DTensor cannot place, ran
+    replicated in the dry run."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor) and t.requires_grad:
+        want = tuple(Replicate() if p.is_partial() else p
+                     for p in t.placements)
         t.register_hook(lambda g: _to(g, want)
                         if isinstance(g, DTensor) else g)
     return t
+
+
+def grad_split_as(t):
+    """A view of ``t`` whose gradient is split as ``t`` is on each mesh dim
+    that splits ``t`` when the backward reaches it (a pending sum there is
+    reduce-scattered), its other mesh dims as the gradient has them (a
+    hook; a plain tensor, one that needs no gradient, or one replicated on
+    every mesh dim is returned as it is).  A layer's weights, at the start
+    of the layer (``transformer._body``): DTensor gave a weight that it
+    gathered for a product its gradient pending a sum over the model axis,
+    whole on every device, and their stack was all-reduced whole
+    (qwen2-vl-72b's MLP gradients, (80, 8192, 29568) in fp32: ROADMAP
+    C.18).  The sum over the data axes stays pending, for the optimizer,
+    as before."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor) or not t.requires_grad or all(
+            p.is_replicate() for p in t.placements):
+        return t
+    mine = tuple(t.placements)
+    t = t.view_as(t)
+    t.register_hook(lambda g: _to(g, [
+        p if q.is_replicate() else q for p, q in zip(g.placements, mine)])
+        if isinstance(g, DTensor) else g)
+    return t
+
+
+def whole_mean(t):
+    """``t.mean(-1, keepdim=True)``; on a DTensor whose last dim a mesh
+    dim splits, the sum over it with its pending reductions done
+    (``complete``), over its size: a norm's statistics whole on every
+    device.  Where the last dim
+    is split over the model axis, DTensor scattered such a mean over the
+    batch there, and the backward then moved each activation gradient it
+    met onto that split, and back (DTensor's mean, a ``Partial("avg")``,
+    cannot be completed in the backward: hence the sum).  Other tensors
+    take the mean as it was."""
+    from torch.distributed.tensor import DTensor, Shard
+    last = t.dim() - 1
+    if not isinstance(t, DTensor) or not any(
+            type(p) is Shard and p.dim == last for p in t.placements):
+        return t.mean(-1, keepdim=True)
+    return complete(t.sum(-1, keepdim=True)) / t.shape[-1]
 
 
 def complete(t):

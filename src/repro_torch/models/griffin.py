@@ -14,8 +14,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (column_parallel_input,
+                                              grad_as_value)
+
 from .base import ModelConfig
-from .layers import _gelu, init_linear
+from .layers import _gelu, init_linear, linear
 
 
 def lru_width(cfg: ModelConfig) -> int:
@@ -78,8 +81,9 @@ def _rg_lru(params, x: torch.Tensor, cfg: ModelConfig, state=None):
 def recurrent_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
                     conv_state=None, lru_state=None):
     """Griffin recurrent block.  Returns (y, (new_conv, new_lru))."""
-    g = _gelu(x @ params["w_gate_in"].to(x.dtype))
-    u = x @ params["w_rec_in"].to(x.dtype)
+    x = column_parallel_input(x, params["w_rec_in"])
+    g = _gelu(linear(x, params["w_gate_in"]))
+    u = linear(x, params["w_rec_in"])
     K, L = params["conv_w"].shape[0], u.shape[1]
     if conv_state is None:
         pad = torch.zeros((u.shape[0], K - 1, u.shape[2]), dtype=u.dtype,
@@ -91,4 +95,5 @@ def recurrent_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
                for j in range(K)) + params["conv_b"].to(u.dtype)
     new_conv = full[:, -(K - 1):, :]
     h, new_lru = _rg_lru(params, conv, cfg, lru_state)
-    return (g * h) @ params["w_out"].to(x.dtype), (new_conv, new_lru)
+    return grad_as_value(linear(g * h, params["w_out"])), \
+        (new_conv, new_lru)

@@ -17,11 +17,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (attend_on_heads,
+                                              column_parallel_input,
+                                              grad_as_value, rows_weight,
+                                              split_heads, whole_mean)
+
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over the last dim, in fp32; the mean of squares whole on
+    every device of a mesh (``sharding.whole_mean``)."""
     dt = x.dtype
     x32 = x.float()
-    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    y = x32 * torch.rsqrt(whole_mean(x32 * x32) + eps)
     return (y * scale.float()).to(dt)
 
 
@@ -95,6 +102,14 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x @ w`` with ``w`` cast to ``dtype`` (``x``'s by default); on
+    DTensors ``w`` whole on each mesh dim that splits ``x``'s batch
+    (``sharding.rows_weight``)."""
+    w = w.to(dtype or x.dtype)
+    return x @ rows_weight(x, w)
+
+
 # ---------------------------------------------------------------- attention
 def _attn_scores_block(q, k, v, mask, scale):
     """q (B,Sq,KH,G,hd), k (B,Skv,KH,hd), v (B,Skv,KH,vd), mask (B,Sq,Skv)
@@ -117,8 +132,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     local attention).  ``scale`` defaults to hd^-½ (MLA passes
     (nope + rope)^-½).  The JAX package's offsets and per-sequence
     kv_len/kv_start serve decode, which goes through ``tide_attention``
-    here.
+    here.  DTensors whose heads a mesh dim splits attend on each device's
+    batch rows and query heads (``sharding.attend_on_heads``); plain
+    tensors take the products below as they are.
     """
+    return attend_on_heads(_attention, q, k, v, causal=causal, window=window,
+                           chunk_q=chunk_q, scale=scale)
+
+
+def _attention(q, k, v, *, causal, window, chunk_q, scale):
+    """``attention`` on plain tensors."""
     B, Sq, H, hd = q.shape
     KH = k.shape[2]
     G = H // KH
@@ -158,11 +181,11 @@ def qkv_proj(params: dict, x: torch.Tensor, cfg, cos=None, sin=None):
     """x (B,S,d) → q (B,S,H,hd), k and v (B,S,KH,hd): projected, qk-normed
     where the config has it (qwen3), q and k rotated where angles are given.
     Prefill and decode share it; they differ only in how they attend."""
-    B, S, _ = x.shape
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, KH, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, KH, hd)
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    x = column_parallel_input(x, params["wq"])
+    q = split_heads(linear(x, params["wq"]), H, H)
+    k = split_heads(linear(x, params["wk"]), KH, H)
+    v = split_heads(linear(x, params["wv"]), KH, H)
     if "q_norm" in params:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -181,7 +204,8 @@ def gqa_block(params: dict, x: torch.Tensor, cfg, *, cos=None, sin=None,
     q, k, v = qkv_proj(params, x, cfg, cos, sin)
     o = attention(q, k, v, causal=cfg.causal, window=window,
                   chunk_q=cfg.attn_chunk_q)
-    return o.reshape(B, S, -1) @ params["wo"].to(x.dtype), (k, v)
+    return grad_as_value(linear(o.reshape(B, S, -1), params["wo"])), \
+        (k, v)
 
 
 def cross_attention(params: dict, x: torch.Tensor, k: torch.Tensor,
@@ -189,18 +213,18 @@ def cross_attention(params: dict, x: torch.Tensor, k: torch.Tensor,
     """Attention of x (B,S,d) over encoder K/V (B,Senc,KH,hd), no mask and
     no rotation (whisper's decoder) → (B,S,d)."""
     B, S, _ = x.shape
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    x = column_parallel_input(x, params["wq"])
+    q = split_heads(linear(x, params["wq"]), cfg.n_heads, cfg.n_heads)
     o = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q)
-    return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    return grad_as_value(linear(o.reshape(B, S, -1), params["wo"]))
 
 
 def cross_kv(params: dict, enc: torch.Tensor, cfg, dtype):
     """Encoder states (B,Senc,encoder_dim) → cross-attention (K, V), each
     (B,Senc,KH,hd) in ``dtype``."""
-    B = enc.shape[0]
-    shape = (B, -1, cfg.n_kv_heads, cfg.hd)
-    return ((enc @ params["wk"].to(dtype)).reshape(shape),
-            (enc @ params["wv"].to(dtype)).reshape(shape))
+    enc = column_parallel_input(enc, params["wk"])
+    return tuple(split_heads(linear(enc, params[w], dtype), cfg.n_kv_heads,
+                             cfg.n_heads) for w in ("wk", "wv"))
 
 
 def init_gqa(gen: torch.Generator, cfg, dtype, *, n: tuple = (),
@@ -226,13 +250,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    x = column_parallel_input(x, params["w_up"])
     if act in ("silu", "geglu"):                    # SwiGLU / gated-GELU
         fn = F.silu if act == "silu" else _gelu
-        g = fn(x @ params["w_gate"].to(x.dtype))
-        u = x @ params["w_up"].to(x.dtype)
-        return (g * u) @ params["w_down"].to(x.dtype)
-    h = _gelu(x @ params["w_up"].to(x.dtype))
-    return h @ params["w_down"].to(x.dtype)
+        g = fn(linear(x, params["w_gate"]))
+        u = linear(x, params["w_up"])
+        return grad_as_value(linear(g * u, params["w_down"]))
+    h = _gelu(linear(x, params["w_up"]))
+    return grad_as_value(linear(h, params["w_down"]))
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, dtype, *,

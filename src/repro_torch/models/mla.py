@@ -95,7 +95,7 @@ def mla_train(params, x, cfg, cos, sin):
     o = grad_as_value(attention(q, k, v, causal=True, scale=_scale(cfg),
                                 chunk_q=cfg.attn_chunk_q))
     o = o.reshape(B, S, H * m.v_head_dim)
-    return o @ params["wo"].to(x.dtype), (c_kv, k_rope)
+    return grad_as_value(o @ params["wo"].to(x.dtype)), (c_kv, k_rope)
 
 
 def mla_decode(params, x, cfg, cos, sin, c_cache, rope_cache, kv_len):

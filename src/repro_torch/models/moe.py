@@ -96,15 +96,27 @@ def _wsc(x, spec):
     return constrain(x, tuple(spec))
 
 
+def _experts(expert_in, we_gate, we_up, we_down):
+    """Every expert's SwiGLU over its slots: expert_in (G,E,C,d) →
+    (G,E,C,d) in expert_in's dtype."""
+    dt = expert_in.dtype
+    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, we_gate.to(dt))) \
+        * torch.einsum("gecd,edf->gecf", expert_in, we_up.to(dt))
+    return torch.einsum("gecf,efd->gecd", h, we_down.to(dt))
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
               dispatch_axes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) → (y (B,S,d), aux_loss scalar fp32).
 
     ``dispatch_axes = (group_axis, expert_axis)``: groups shard over the
     data axis, experts over the model axis (the canonical MoE all-to-all)."""
-    from repro_torch.distributed.sharding import experts_as_weight
+    from repro_torch.distributed.sharding import (experts_as_weight,
+                                                  grad_rows_viewable,
+                                                  rows_on_shards,
+                                                  rows_viewable)
     B, S, d = x.shape
-    xg = group_tokens(x, cfg)
+    xg = grad_rows_viewable(group_tokens(x, cfg), B)
     dispatch, gates, _, aux = moe_route(params["router"], xg, cfg)
     dt = x.dtype
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), xg)
@@ -112,11 +124,8 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
         ga, ea = dispatch_axes
         expert_in = _wsc(expert_in, (ga, ea, None, None))
     expert_in = experts_as_weight(expert_in, params["we_gate"])
-    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in,
-                            params["we_gate"].to(dt))) \
-        * torch.einsum("gecd,edf->gecf", expert_in, params["we_up"].to(dt))
-    expert_out = torch.einsum("gecf,efd->gecd", h,
-                              params["we_down"].to(dt))        # (G,E,C,d)
+    expert_out = rows_on_shards(_experts, expert_in, params["we_gate"],
+                                params["we_up"], params["we_down"])
     expert_out = experts_as_weight(expert_out, params["we_down"])
     if dispatch_axes is not None:
         expert_out = _wsc(expert_out, (dispatch_axes[0], dispatch_axes[1],
@@ -127,4 +136,4 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
         sh = F.silu(xg @ params["ws_gate"].to(dt)) \
             * (xg @ params["ws_up"].to(dt))
         y = y + sh @ params["ws_down"].to(dt)
-    return y.reshape(B, S, d), aux.float()
+    return rows_viewable(y, B).reshape(B, S, d), aux.float()

@@ -19,11 +19,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (column_parallel_input,
+                                              grad_as_value, scan_on_heads)
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_scan
 
 from .base import ModelConfig
-from .layers import init_linear, rms_norm
+from .layers import init_linear, linear, rms_norm
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -88,10 +90,11 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     d_inner, n_heads, _ = ssm_dims(cfg)
     B, L, _ = x.shape
     dt_ = x.dtype
-    z = x @ params["in_z"].to(dt_)
-    xin = x @ params["in_x"].to(dt_)
-    bc = x @ params["in_bc"].to(dt_)
-    dt_raw = x @ params["in_dt"].to(dt_)
+    x = column_parallel_input(x, params["in_x"])
+    z = grad_as_value(linear(x, params["in_z"]))
+    xin = linear(x, params["in_x"])
+    bc = linear(x, params["in_bc"])
+    dt_raw = linear(x, params["in_dt"])
     xin, new_conv_x = _causal_conv(xin, params["conv_x_w"].to(dt_),
                                    params["conv_x_b"].to(dt_), conv_x_state)
     bc, new_conv_bc = _causal_conv(bc, params["conv_bc_w"].to(dt_),
@@ -116,11 +119,11 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
         y = y[:, None].to(dt_)
         new_ssm = h
     else:
-        scan = ssd_scan if differentiable else ssd
-        y, new_ssm = scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size,
-                          init_state=ssm_state)
+        y, new_ssm = scan_on_heads(ssd_scan if differentiable else ssd, xs,
+                                   dt, A, Bm, Cm, chunk=s.chunk_size,
+                                   init_state=ssm_state)
     y = y + xs * params["D"].to(dt_)[None, None, :, None]
     y = y.reshape(B, L, d_inner)
     y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return (y @ params["out_proj"].to(dt_),
+    return (grad_as_value(linear(y, params["out_proj"])),
             (new_conv_x, new_conv_bc, new_ssm))

@@ -72,9 +72,23 @@ def layers(stacked: dict, n: int) -> list[dict]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
+def _map_leaves(fn, tree: dict) -> dict:
+    """``tree`` (nested dicts) with ``fn`` applied to every leaf."""
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def _body(cfg: ModelConfig, train: bool, fn, *args):
     """``fn(*args)``, recomputed in the backward pass when training under
-    ``cfg.remat`` (the JAX package's ``jax.checkpoint(body)``)."""
+    ``cfg.remat`` (the JAX package's ``jax.checkpoint(body)``).  The
+    layer's parameters (a dict among ``args``) have their gradients split
+    as they are where they are DTensors (``sharding.grad_split_as``; ROADMAP
+    C.18), on views made here: a view made with the layer's ``unbind``
+    comes before every layer's ops, and autograd runs its backward after
+    every layer's, each layer's gradient whole until then."""
+    from repro_torch.distributed.sharding import grad_split_as
+    args = tuple(_map_leaves(grad_split_as, a) if isinstance(a, dict)
+                 else a for a in args)
     if train and cfg.remat:
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -196,7 +210,11 @@ def param_count_exact(cfg: ModelConfig) -> int:
 
 # ============================================================= embeddings
 def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.adtype)
+    """The tokens' rows of the embedding table in ``cfg.adtype``; on a mesh
+    that splits the table's vocab, each device's slice looked up
+    (``sharding.embed_on_shards``)."""
+    from repro_torch.distributed.sharding import embed_on_shards
+    return embed_on_shards(params["embed"], tokens.long(), cfg.adtype)
 
 
 def lm_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
@@ -451,11 +469,13 @@ def _mtp_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """DeepSeek-style multi-token prediction: predict t+2 from a fused
     representation of (hidden_t, embed(token_{t+1})) through one extra
     layer; the hidden state is the embedding, as in the JAX package."""
+    from repro_torch.distributed.sharding import grad_as_value
     tokens, labels = batch["tokens"], batch["labels"]
     S = tokens.shape[1]
     x = maybe_shard_activations(cfg, embed_tokens(params, cfg, tokens))
     nxt = _roll_left(x)
-    h = torch.cat([x, nxt], dim=-1) @ params["mtp"]["proj"].to(x.dtype)
+    h = grad_as_value(torch.cat([x, nxt], dim=-1)
+                      @ params["mtp"]["proj"].to(x.dtype))
     h = maybe_shard_activations(cfg, h)
     pos = torch.arange(S, device=x.device)[None]
     cos, sin = _angles(cfg, pos)

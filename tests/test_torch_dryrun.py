@@ -276,7 +276,9 @@ def test_mamba2_cell_runs_on_the_dry_runs_flip_rule(mesh, monkeypatch):
     """As on a torch whose DTensor has no ``flip`` rule: with this torch's
     own rule taken out, the dry run registers its rule, and mamba2-1.3b's
     SMOKE train cell (its cumsums' backward flips) traces ``ok`` through
-    it, with no op run replicated."""
+    it, with no op run replicated.  The SSD is traced on DTensors, as its
+    products place them: the model's own route runs it on each device's
+    shards (``sharding.scan_on_heads``), where the flips are plain."""
     from torch.distributed.tensor import DTensor
     prop = DTensor._op_dispatcher.sharding_propagator
     flip = torch.ops.aten.flip.default
@@ -284,6 +286,9 @@ def test_mamba2_cell_runs_on_the_dry_runs_flip_rule(mesh, monkeypatch):
     real = dryrun._flip_strategy
     monkeypatch.setattr(dryrun, "_flip_strategy",
                         lambda s: calls.append(s) or real(s))
+    from repro_torch.models import ssm
+    monkeypatch.setattr(ssm, "scan_on_heads",
+                        lambda scan, *a, **kw: scan(*a, **kw))
     def clear_caches():                # Python's and the C++ fast path's
         prop.propagate_op_sharding.cache.cache_clear()
         getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",

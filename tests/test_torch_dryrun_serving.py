@@ -107,17 +107,21 @@ def test_prefill_peak_is_below_the_whole_cache(mesh, arch):
 class _PlainOps(TorchDispatchMode):
     """The shapes of the tensors that ops on plain tensors only give, seen
     from the top of the mode stack (the ops DTensor runs on local shards
-    stay below it)."""
+    stay below it), and their dtypes, each into the list ``into`` names.
+    Collectives are left out: a redistribution's gather stacks the devices'
+    shards on its first dim, which is no batch."""
 
     def __init__(self):
         super().__init__()
         self.shapes = []
+        self.into = self.shapes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         out = func(*args, **(kwargs or {}))
-        if not any(issubclass(t, DTensor) for t in types):
-            self.shapes += [tuple(o.shape) for o in (
+        if not any(issubclass(t, DTensor) for t in types) and \
+                not func.namespace.endswith("c10d_functional"):
+            self.into += [(tuple(o.shape), o.dtype) for o in (
                 out if isinstance(out, (list, tuple)) else (out,))
                 if isinstance(o, torch.Tensor)]
         return out
@@ -129,25 +133,44 @@ def test_attention_makes_no_plain_tensor_of_the_batch(mesh, arch,
                                                       monkeypatch):
     """Inside the prefill's attention (causal, windowed, and whisper's
     encoder and cross attention), every tensor made from plain tensors
-    alone (the mask, the positions) has one row where the batch has B: a
-    plain tensor is whole on every device."""
-    seen, calls = [], []
+    alone has one row where the batch has B: a plain tensor is whole on
+    every device.  Where the products run on each device's shards
+    (``sharding.attend_on_heads``), they take plain local tensors of the
+    device's rows (B / 2 or B / 4 here, as the mesh splits the batch), and
+    the mask they make (the one boolean tensor of three dims) has one
+    row."""
+    seen, local, rows, calls, modes = [], [], [], [], []
 
     def attention(q, *args, **kw):
         if not hasattr(q, "placements"):          # ``op_cost``'s fake run
             return real(q, *args, **kw)
         calls.append(1)
         with _PlainOps() as mode:
+            modes.append(mode)
             out = real(q, *args, **kw)
         seen.extend(mode.shapes)
         return out
 
-    real = layers.attention
+    def products(q, *args, **kw):
+        if not modes or hasattr(q, "placements"):
+            return real_products(q, *args, **kw)
+        rows.append(q.shape[0])                   # a device's shards
+        modes[-1].into = local
+        try:
+            return real_products(q, *args, **kw)
+        finally:
+            modes[-1].into = modes[-1].shapes
+
+    real, real_products = layers.attention, layers._attention
     monkeypatch.setattr(layers, "attention", attention)
+    monkeypatch.setattr(layers, "_attention", products)
     entry = dryrun.lower_cell(arch, PREFILL, False, dict(CUTS[arch]),
                               mesh=mesh, smoke=True)
-    assert entry["status"] == "ok" and calls and seen
-    assert not [s for s in seen if len(s) > 1 and s[0] == B], seen
+    assert entry["status"] == "ok" and calls and (seen or local)
+    assert not [s for s, _ in seen if len(s) > 1 and s[0] == B], seen
+    assert all(r < B and B % r == 0 for r in rows), rows
+    masks = [s for s, dt in local if dt == torch.bool and len(s) == 3]
+    assert not rows or (masks and all(s[0] == 1 for s in masks)), local
 
 
 # Decodes whose arena the model axis splits by KV heads (phi3-mini's and

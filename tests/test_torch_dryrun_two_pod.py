@@ -122,7 +122,10 @@ def test_smoke_step_keeps_the_batch_split(mesh, gather_rule, arch,
                                           monkeypatch):
     """A one-layer SMOKE train step of 8 x 32 tokens: ``ok``, no view or
     ``_unsafe_view`` run replicated, and the activations that enter the
-    attention (q) or the SSD (x) split on the batch over pod and data."""
+    attention (q) or the SSD (x) split on the batch over pod and data.
+    The embedding looks each device's vocab slice up on its own rows
+    (``sharding.embed_on_shards``): no gather runs again replicated, with
+    2.11's refusal stood in for or not."""
     seen = []
 
     def watch(fn):
@@ -133,14 +136,16 @@ def test_smoke_step_keeps_the_batch_split(mesh, gather_rule, arch,
         return inner
 
     monkeypatch.setattr(layers, "attention", watch(layers.attention))
-    monkeypatch.setattr(ssm, "ssd_scan", watch(ssm.ssd_scan))
+    # The SSD enters its hook (``sharding.scan_on_heads``) with x second.
+    scan = ssm.scan_on_heads
+    monkeypatch.setattr(ssm, "scan_on_heads", lambda fn, x, *a, **kw:
+                        watch(lambda x: scan(fn, x, *a, **kw))(x))
     entry = dryrun.lower_cell(arch, ShapeSpec("train_smoke", 32, 8, "train"),
                               True, dict(_CUTS[arch]), mesh=mesh, smoke=True)
     assert entry["status"] == "ok" and entry["mesh"] == "2x2x2"
     assert not {"view", "_unsafe_view"} & set(entry["replicated_calls"])
     assert set(entry["replicated_calls"]) <= dryrun.REPLICABLE
-    if gather_rule == "2.11":
-        assert entry["replicated_calls"]["index"] == 1
+    assert "index" not in entry["replicated_calls"]
     assert seen and all(p[:2] == (_shard(0), _shard(0)) for p in seen), seen
 
 
