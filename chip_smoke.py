@@ -2246,28 +2246,49 @@ REF_DRYRUN_COLLECTIVES = 7.4970554408e10
 # collective bytes), for the two-pod cells of phase 13 (f).
 REF_DRYRUN_MULTI = {"qwen3-0.6b": (9.652081464e9, 3.7579382824e10),
                     "mamba2-1.3b": (4.0878689856e10, 5.6008665388e10)}
-# The serving cells of phase 13 (f) on 16 x 16: ``python -m
-# repro.launch.dryrun --arch <arch> --shape <shape> --mesh single`` on the
-# CPU (peak bytes a device, collective bytes), and the bounds each is held
-# to (ROADMAP C.12): the prefill's footprint, the decode's collectives,
-# and the prefills' peak on the reference's terms within 2x the
-# reference's (its heads split over the model axis: each device holds
-# its own query heads' scores).
+# The serving cells of phase 13 (f), on 16 x 16 and one on 2 x 16 x 16
+# (the third entry: whether on two pods): ``python -m repro.launch.dryrun
+# --arch <arch> --shape <shape> --mesh single`` (``multi``) on the CPU
+# (peak bytes a device, collective bytes), and the bounds each is held to
+# (ROADMAP C.12): the prefill's footprint, the decode's collectives, and
+# the prefills' peak on the reference's terms within a multiple of the
+# reference's: 2x where the heads split over the model axis (each device
+# holds its own query heads' scores), 1.2x for whisper-large-v3, whose 20
+# heads split unevenly over the 16-wide axis (3.50x before), and 1.5x for
+# mamba2-1.3b on two pods, its whole embedding table looked up on each
+# device's rows (1.94x on torch 2.11 before).
 # ``python -m repro.launch.dryrun --arch phi3-mini-3.8b --shape
 # prefill_32k --mesh single`` on the CPU (peak bytes a device, collective
 # bytes).
 REF_PHI3_PREFILL_PEAK, REF_PHI3_PREFILL_COLL = 4.272265576e9, 5.234491392e10
+# ``python -m repro.launch.dryrun --arch whisper-large-v3 --shape
+# prefill_32k --mesh single`` and ``--arch mamba2-1.3b --shape prefill_32k
+# --mesh multi`` on the CPU (peak bytes a device, collective bytes).
+REF_WHISPER_PREFILL = (4.184540608e9, 4.833738752e10)
+REF_MAMBA2_PREFILL_MULTI = (1.390311688e9, 1.6364077056e10)
 REF_DRYRUN_SERVING = {
-    "dryrun_qwen3_prefill": ("qwen3-0.6b", "prefill_32k",
+    "dryrun_qwen3_prefill": ("qwen3-0.6b", "prefill_32k", False,
                              (1.233248072e9, 2.0509360128e10)),
-    "dryrun_phi3_decode": ("phi3-mini-3.8b", "decode_32k",
+    "dryrun_phi3_decode": ("phi3-mini-3.8b", "decode_32k", False,
                            (1.8068707848e10, 1.2684544e7)),
-    "dryrun_phi3_prefill": ("phi3-mini-3.8b", "prefill_32k",
-                            (REF_PHI3_PREFILL_PEAK, REF_PHI3_PREFILL_COLL))}
+    "dryrun_phi3_prefill": ("phi3-mini-3.8b", "prefill_32k", False,
+                            (REF_PHI3_PREFILL_PEAK, REF_PHI3_PREFILL_COLL)),
+    "dryrun_whisper_prefill": ("whisper-large-v3", "prefill_32k", False,
+                               REF_WHISPER_PREFILL),
+    "dryrun_mamba2_prefill_multi": ("mamba2-1.3b", "prefill_32k", True,
+                                    REF_MAMBA2_PREFILL_MULTI)}
 SERVING_BOUND = {"dryrun_qwen3_prefill": ("footprint_bytes", 1.7e10),
                  "dryrun_phi3_decode": ("collective_bytes", 1e10)}
 SERVING_PEAK_BOUND = {"dryrun_qwen3_prefill": 2.0,
-                      "dryrun_phi3_prefill": 2.0}
+                      "dryrun_phi3_prefill": 2.0,
+                      "dryrun_whisper_prefill": 1.2,
+                      "dryrun_mamba2_prefill_multi": 1.5}
+# Ops that the serving cells of phase 13 (f) must not run replicated: the
+# head views of whisper's prefill (``sharding.project_heads``), the
+# embedding's gather on two pods (``sharding.embed_on_shards``).
+SERVING_NOT_REPLICATED = {
+    "dryrun_whisper_prefill": ("view", "_unsafe_view"),
+    "dryrun_mamba2_prefill_multi": ("index", "index_put")}
 # Phase 13 (f)'s bound on a two-pod cell's peak over the reference's:
 # mamba2-1.3b's is 1.5x, as the one-pod cell's; qwen3-0.6b's, 1.5x since
 # its attention's heads stay split over the model axis (ROADMAP C.12:
@@ -2560,8 +2581,8 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
                                {"n_layers": 2}),
         "dryrun_qwen2_vl_2l": ("qwen2-vl-72b", "train_4k", False, False,
                                {"n_layers": 2}),
-        **{key: (arch, shape, False, False)
-           for key, (arch, shape, _) in REF_DRYRUN_SERVING.items()}})
+        **{key: (arch, shape, multi, False)
+           for key, (arch, shape, multi, _) in REF_DRYRUN_SERVING.items()}})
     for key, cell in cells.items():
         if cell.get("status") != "ok":
             fail(f"dry-run cell {key}: {cell.get('status')}")
@@ -2604,7 +2625,7 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
                  f"{bound}x the reference's {ref_peak}")
     # The serving cells: the prefill's cache placed on the mesh, the
     # decode's arena read where it lies.
-    for key, (_, _, (ref_peak, ref_coll)) in REF_DRYRUN_SERVING.items():
+    for key, (_, _, _, (ref_peak, ref_coll)) in REF_DRYRUN_SERVING.items():
         rf, mem = res[key]["roofline"], res[key]["memory"]
         res[key]["peak_over_reference"] = mem["footprint_bytes"] / ref_peak
         res[key]["collectives_over_reference"] = \
@@ -2621,6 +2642,10 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
             fail(f"dry-run cell {key}: peak on the reference's terms "
                  f"{mem['peak_reference_terms']} B, over "
                  f"{SERVING_PEAK_BOUND[key]}x the reference's {ref_peak}")
+        ran = set(SERVING_NOT_REPLICATED.get(key, ())) & set(
+            res[key]["replicated_calls"])
+        if ran:
+            fail(f"dry-run cell {key}: ran {sorted(ran)} replicated")
     # Two train cells on the reference's terms (ROADMAP C.16, C.17).
     cell = res["dryrun_qwen2_moe"]
     peak = cell["memory"]["peak_reference_terms"]
@@ -3699,7 +3724,7 @@ def main() -> None:
                 "dryrun_deepseek_2l", "dryrun_qwen2_vl_2l",
                 *REF_DRYRUN_SERVING):
         c = scaleout[key]
-        ref = REF_DRYRUN_SERVING[key][2] if key in REF_DRYRUN_SERVING \
+        ref = REF_DRYRUN_SERVING[key][3] if key in REF_DRYRUN_SERVING \
             else (REF_DRYRUN_PEAK, REF_DRYRUN_COLLECTIVES) \
             if key == "dryrun_cell" else REF_DRYRUN_MULTI.get(c["arch"])
         over = ""

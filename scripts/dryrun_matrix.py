@@ -2,7 +2,7 @@
 cell, several at once, then one table of the records.
 
     PYTHONPATH=src python scripts/dryrun_matrix.py [--jobs 8]
-        [--src src] [--out experiments/dryrun_matrix]
+        [--src src] [--out experiments/dryrun_matrix] [--ref REF.json ...]
 
 Each cell runs ``python -m repro_torch.launch.dryrun --arch A --shape S
 --mesh M --out <out>/<A>_<S>_<M>.json`` with ``--src`` first on its
@@ -11,7 +11,10 @@ and its change in one run).  A cell that exists already is not run again.
 The table gives, a device, the peak on the reference's terms, the
 footprint and the collective bytes of each cell, its status where it is
 not ``ok``, and any op run replicated; the last line counts the cells by
-status (``ok``, SKIP, FAIL).
+status (``ok``, SKIP, FAIL).  Each ``--ref`` is a record of the JAX
+package's dry run (``python -m repro.launch.dryrun ... --out REF.json``):
+a cell it holds gets the reference's peak and collectives a device beside
+the port's, and the port's over them.
 """
 from __future__ import annotations
 
@@ -37,7 +40,11 @@ def main() -> None:
                                          / "src"))
     ap.add_argument("--out", default="experiments/dryrun_matrix")
     ap.add_argument("--timeout", type=float, default=3000.0)
+    ap.add_argument("--ref", action="append", default=[])
     args = ap.parse_args()
+    ref = {(r["arch"], r["shape"], r["mesh"]): r["roofline"]
+           for path in args.ref for r in json.load(open(path))
+           if r.get("status") == "ok"}
     os.makedirs(args.out, exist_ok=True)
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
            "PYTHONPATH": os.pathsep.join(
@@ -83,12 +90,18 @@ def main() -> None:
                     rows.append(f"{a} x {s} x {m}: {status[:60]}")
                     continue
                 mem = r["memory"]
+                peak, coll = mem["peak_reference_terms"], \
+                    r["roofline"]["collective_bytes"]
+                rf = ref.get((a, s, r["mesh"]))
                 rows.append(
-                    f"{a} x {s} x {m}: {mem['peak_reference_terms']:.4e} / "
-                    f"{mem['footprint_bytes']:.4e} / "
-                    f"{r['roofline']['collective_bytes']:.4e}"
+                    f"{a} x {s} x {m}: {peak:.4e} / "
+                    f"{mem['footprint_bytes']:.4e} / {coll:.4e}"
                     + (f" replicated {r['replicated_calls']}"
-                       if r["replicated_calls"] else ""))
+                       if r["replicated_calls"] else "")
+                    + (f" | ref {rf['peak_memory_per_device']:.4e} / "
+                       f"{rf['collective_bytes']:.4e}: "
+                       f"{peak / rf['peak_memory_per_device']:.2f}x / "
+                       f"{coll / rf['collective_bytes']:.2f}x" if rf else ""))
     print("\n".join(rows))
     print(f"cells: {counts} in {time.time() - t0:.0f} s")
 

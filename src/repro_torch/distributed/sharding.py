@@ -401,7 +401,8 @@ def split_heads(t, n: int, heads: int):
     the K/V whole on every device; ``attend_on_heads`` then splits the
     query heads.  Plain tensors, DTensors whose split ``n`` divides, and
     layers whose query heads the split does not divide (whisper's 20 on
-    16), are viewed as they are."""
+    16: ``project_heads`` splits those unevenly, but in a decode step),
+    are viewed as they are."""
     from torch.distributed.tensor import DTensor, Shard
     shape = (*t.shape[:2], n, t.shape[-1] // n)
     if isinstance(t, DTensor):
@@ -450,35 +451,113 @@ def _from_local(local, mesh, placements, shape):
                               stride=contiguous_strides(shape))
 
 
-def _rows_and_heads(ts, head_dim: int):
+def _rows_and_heads(ts, head_dim: int, seq: int = 0, heads=None):
     """Placements for a computation that each device runs on its own batch
-    rows and heads of the DTensors ``ts`` (the first gives the shape): each
-    mesh dim that splits the batch (dim 0) of any of them keeps that split
-    where the batch divides it, each other mesh dim splits the heads
-    (``head_dim``) where they divide further, and any left replicates →
-    those placements, or None where no mesh dim splits the heads and some
-    mesh dim replicates (whisper's 20 heads on a 16-wide model axis), or
-    nothing is split at all (a mesh of one device): there the products stay
-    as they are."""
+    rows and heads of the DTensors ``ts`` (the first gives the shape, and
+    ``heads``, where given, the number of heads at ``head_dim``): each mesh
+    dim that splits the batch (dim 0) of any of them keeps that split
+    where the batch divides it, each that splits the heads of any of them
+    keeps that split where they divide, and where the sequence ``seq`` is
+    no shorter than a mesh dim, each other mesh dim splits the heads
+    where they divide further; any left replicates → those placements, or
+    None where no mesh dim splits the heads and some mesh dim replicates,
+    or nothing is split at all (a mesh of one device): there the products
+    stay as they are.  Where no mesh dim splits the heads, the innermost
+    mesh dim left replicated splits them unevenly, again if ``seq`` is no
+    shorter than it, ceil(heads / n) a device as ``torch.chunk`` cuts them
+    (whisper's 20 heads on a 16-wide model axis: 2 heads on 10 devices,
+    none on 6).  A decode step's one token moves nothing to split its
+    heads further: mamba2-1.3b x long_500k's one sequence keeps its
+    state's heads where the cache has them."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor import DTensor
-    t, want, rows, across = ts[0], [], 1, 1
-    for i in range(t.device_mesh.ndim):
-        n = t.device_mesh.size(i)
+    t, rows, across = ts[0], 1, 1
+    mesh, heads = t.device_mesh, heads or t.shape[head_dim]
+    want = [None] * mesh.ndim
+
+    def split(i, dim):
+        return any(isinstance(u, DTensor) and u.placements[i] == Shard(dim)
+                   for u in ts)
+
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
         if n == 1:                                 # no split at all
-            want.append(Replicate())
-        elif any(isinstance(u, DTensor) and u.placements[i] == Shard(0)
-                 for u in ts) and t.shape[0] % (rows * n) == 0:
-            want.append(Shard(0))
+            want[i] = Replicate()
+        elif split(i, 0) and t.shape[0] % (rows * n) == 0:
+            want[i] = Shard(0)
             rows *= n
-        elif t.shape[head_dim] % (across * n) == 0:
-            want.append(Shard(head_dim))
+        elif split(i, head_dim) and heads % (across * n) == 0:
+            want[i] = Shard(head_dim)
             across *= n
-        else:
-            want.append(Replicate())
-    whole = any(p.is_replicate() and t.device_mesh.size(i) > 1
-                for i, p in enumerate(want))
-    return None if across == 1 and (rows == 1 or whole) else want
+    for i in range(mesh.ndim):
+        if want[i] is None and seq >= mesh.size(i) and \
+                heads % (across * mesh.size(i)) == 0:
+            want[i] = Shard(head_dim)
+            across *= mesh.size(i)
+        elif want[i] is None:
+            want[i] = Replicate()
+    left = [i for i, p in enumerate(want)
+            if p.is_replicate() and mesh.size(i) > 1]
+    if across == 1 and left and heads > 1 and seq >= mesh.size(left[-1]):
+        want[left[-1]] = Shard(head_dim)
+        across, left = mesh.size(left[-1]), left[:-1]
+    return None if across == 1 and (rows == 1 or left) else want
+
+
+def _uneven(want, heads: int, mesh):
+    """The mesh dim of ``want`` that splits the heads (dim 2) unevenly, and
+    the range of heads it leaves this device → (mesh dim, (h0, h1)), or
+    None where no mesh dim does."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(want or ()):
+        if p == Shard(2) and heads % mesh.size(i):
+            per = -(-heads // mesh.size(i))        # torch.chunk's cut
+            h0 = min(heads, per * mesh.get_coordinate()[i])
+            return i, (h0, min(heads, h0 + per))
+    return None
+
+
+def project_heads(proj, x, w, n: int, heads: int, per_query: bool = False):
+    """``split_heads(proj(x, w), n, heads)``: a layer's Q (``n`` =
+    ``heads``, its query heads) or its K or V (``n`` KV heads), (B,S,n,hd)
+    from x (B,S,d) and w (d, n*hd).  Where x is a DTensor whose query
+    heads split unevenly over a mesh dim (``_rows_and_heads``: no mesh dim
+    divides them; whisper-large-v3's 20 and phi3-medium-14b's 40 on a
+    16-wide model axis), each device multiplies its rows of x, whole on
+    that mesh dim (``column_parallel_input`` places it so), by the
+    columns of w for its own heads (w whole there; the gradients of x and
+    w each device's part of a sum), and the output comes back split so: Q
+    over its query heads as ``attend_on_heads`` places them, K and V over
+    their KV heads, or with ``per_query`` one copy for each of the
+    device's query heads, (B,S,heads,hd) placed as Q, for the attention.
+    No activation moves, and K/V are never whole on a device; DTensor's
+    own heads view of the split hidden dim is refused, and ran replicated
+    in the dry run.
+    Other tensors → ``split_heads(proj(x, w), n, heads)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    want = _rows_and_heads([x], 2, x.shape[1], heads) \
+        if isinstance(x, DTensor) else None
+    cut = _uneven(want, heads, x.device_mesh) if want else None
+    if cut is None:
+        return split_heads(proj(x, w), n, heads)
+    mesh, (i, (h0, h1)) = x.device_mesh, cut
+    hd, group = w.shape[-1] // n, heads // n
+    if n == heads or per_query:                  # the query heads' own
+        lo, hi = h0 // group, -(-h1 // group)
+    else:
+        _, (lo, hi) = _uneven(want, n, mesh)
+    whole = [Replicate()] * mesh.ndim
+    x_l = _local_shard(x, [p if p == Shard(0) else Replicate()
+                           for p in want], want)
+    w_l = _local_shard(_as_dtensor(w, mesh), whole, want)
+    y = proj(x_l, w_l[..., lo * hd:hi * hd].contiguous())
+    y = y.reshape(*y.shape[:2], hi - lo, hd)
+    if per_query and group > 1:
+        y = y[:, :, :, None].expand(*y.shape[:3], group, hd).reshape(
+            *y.shape[:2], (hi - lo) * group, hd)[:, :, h0 - lo * group:
+                                                 h1 - lo * group]
+    n_out = heads if per_query else n
+    return _from_local(y, mesh, want, (*x.shape[:2], n_out, hd))
 
 
 def attend_on_heads(attend, q, k, v, **kw):
@@ -498,16 +577,23 @@ def attend_on_heads(attend, q, k, v, **kw):
     DTensor itself flattens the split batch and head dims into one batch
     of products, which it cannot place (the batch would be split inside
     the flattened dim), and the dry run ran each such view replicated, a
-    chunk's fp32 scores for every head on each device.  Plain tensors, and
-    q whose heads no mesh dim can split where another replicates
-    (whisper's 20 heads on 16), go to ``attend`` as they are."""
+    chunk's fp32 scores for every head on each device.
+    Heads that no mesh dim divides (whisper's 20 and phi3-medium-14b's 40
+    on a 16-wide model axis) split unevenly over the innermost mesh dim
+    left whole, ceil(H / n) a device (``_rows_and_heads``), their K/V
+    copied per query head where the KV heads are fewer; the output stays
+    split so, and ``merge_heads`` multiplies it by the output projection
+    (no torch views an uneven split of heads as the hidden dim).  XLA's
+    partitioner tiles whisper's product 4 ways over the heads and
+    replicates it over the other 4; DTensor left it whole on every
+    device.  Plain tensors go to ``attend`` as they are."""
     from torch.distributed.tensor import DTensor, Shard
     if not isinstance(q, DTensor):
         return attend(q, k, v, **kw)
-    want = _rows_and_heads([q, k, v], 2)
+    want = _rows_and_heads([q, k, v], 2, q.shape[1])
     if want is None:
         return attend(q, k, v, **kw)
-    mesh, H = q.device_mesh, q.shape[2]
+    mesh, (B, Sq, H, _) = q.device_mesh, q.shape
     across = math.prod(mesh.size(i) for i, p in enumerate(want)
                        if p == Shard(2))
 
@@ -518,18 +604,50 @@ def attend_on_heads(attend, q, k, v, **kw):
             return t
         # Split the sequence where the heads will be, so that each device
         # copies 1/across of the expanded K/V, then expand (KH, G) → H.
-        seq = [Shard(1) if w == Shard(2) and p.is_replicate() else p
-               for p, w in zip(t.placements, want)]
-        if S % math.prod(mesh.size(i) for i, p in enumerate(seq)
-                         if p == Shard(1)) == 0:
+        # KV heads split unevenly (``project_heads``) move there whatever
+        # the sequence's length.
+        on_heads = Shard(2) in t.placements
+        seq = [Shard(1) if w == Shard(2) and (p.is_replicate() or on_heads)
+               else p for p, w in zip(t.placements, want)]
+        if on_heads or S % math.prod(mesh.size(i) for i, p in enumerate(seq)
+                                     if p == Shard(1)) == 0:
             t = _to(t, seq)
         return t[:, :, :, None].expand(B, S, n, H // n, d).reshape(
             B, S, H, d)
 
-    out = attend(_local_shard(q, want, want),
-                 _local_shard(per_query_head(k), want, want),
-                 _local_shard(per_query_head(v), want, want), **kw)
-    return _from_local(out, mesh, want, (*q.shape[:3], v.shape[-1]))
+    q, k, v = (_local_shard(t, want, want)
+               for t in (q, per_query_head(k), per_query_head(v)))
+    # A device that holds none of an uneven split's heads gives an empty
+    # output made of its inputs: their gradients' moves run on every device.
+    out = attend(q, k, v, **kw) if q.shape[2] else torch.einsum(
+        "bqhd,bshd,bshv->bqhv", q, k, v)
+    return _from_local(out, mesh, want, (B, Sq, H, v.shape[-1]))
+
+
+def merge_heads(proj, o, w):
+    """``proj(o.reshape(B, S, H * vd), w)``, the output projection of an
+    attention's output o (B,S,H,vd) by w (H*vd, d).  Where o is a DTensor
+    whose heads a mesh dim splits unevenly (``attend_on_heads``), each
+    device multiplies its own heads by their rows of w (w whole on that
+    mesh dim, its gradient each device's part of a sum there and on every
+    mesh dim that splits o), and the output is pending a sum there, as a
+    row-parallel product's is: no torch views such a split as the hidden
+    dim, and the view ran replicated in the dry run, every head's output
+    on each device.  Other tensors take ``proj`` as they are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    B, S, H, vd = o.shape
+    cut = _uneven(o.placements, H, o.device_mesh) \
+        if isinstance(o, DTensor) else None
+    if cut is None:
+        return proj(o.reshape(B, S, H * vd), w)
+    mesh, (_, (h0, h1)) = o.device_mesh, cut
+    local = o.to_local()
+    w = _local_shard(_as_dtensor(w, mesh), [Replicate()] * mesh.ndim,
+                     o.placements)[h0 * vd:h1 * vd].contiguous()
+    out = proj(local.reshape(*local.shape[:2], (h1 - h0) * vd), w)
+    return _from_local(out, mesh, [Partial() if p == Shard(2) else p
+                                   for p in o.placements],
+                       (B, S, out.shape[-1]))
 
 
 def rows_on_shards(fn, x, *ws):
@@ -583,7 +701,7 @@ def scan_on_heads(scan, x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
-    want = _rows_and_heads([x], 2)
+    want = _rows_and_heads([x], 2, x.shape[1])
     if want is None:
         return scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
     mesh = x.device_mesh
@@ -670,40 +788,62 @@ def column_parallel_input(x, w):
 
 
 def embed_on_shards(table, ids, dtype):
-    """``table[ids].to(dtype)`` (table (V, d), ids integers) where
-    ``table`` is a DTensor split on its vocab (dim 0) over one mesh dim and
-    whole on the others: each device looks the ids up in its own slice of
-    the vocab (the others give zeros), its rows split as the ids are, and
-    the sum over the vocab's mesh dim is completed (the rows whole over
-    the model axis, as the input projections take them; scattered over
-    the hidden dim instead, 2.11 placed the attention of heads that the
-    axis does not divide with collectives x145); the table's gradient
-    comes back split as the table, each device's part of a sum elsewhere.
-    XLA's partitioner masks each device's slice of the reference's gather
-    likewise.  DTensor gathered the whole table on every device, and
-    2.11's has no rule for ids split over two mesh dims on one dim (the
-    batch over pod and data): the dry run ran that gather again on ids
-    gathered over data, 16 rows of a prefill's embeddings on each device.
-    A plain tensor, and other placements, take ``table[ids].to(dtype)`` as
-    it is."""
+    """``table[ids].to(dtype)`` (table (V, d), ids integers) where ``ids``
+    is a DTensor and ``table`` a DTensor split on its vocab (dim 0) over
+    one mesh dim and whole on the others: each device looks the ids up in
+    its own slice of the vocab (the others give zeros), its rows split as
+    the ids are, and the sum over the vocab's mesh dim is completed (the
+    rows whole over the model axis, as the input projections take them;
+    scattered over the hidden dim instead, 2.11 placed the attention of
+    heads that the axis does not divide with collectives x145); the
+    table's gradient comes back split as the table, each device's part of
+    a sum elsewhere.  XLA's partitioner masks each device's slice of the
+    reference's gather likewise.  DTensor gathered the whole table on every
+    device.  A table whole on every mesh dim (a vocab the model axis does
+    not divide: mamba2-1.3b's 50280, whisper's 51866 on 16) is looked up on
+    each device's own ids where a mesh dim splits them, the output placed
+    as the ids, the table's gradient each device's part of a sum over the
+    mesh dims that split them, scattered over the innermost.  2.11's
+    DTensor has no rule for ids split over two mesh dims on
+    one dim (the batch over pod and data): the dry run ran either gather
+    again on ids gathered over data, 16 rows of a prefill's embeddings on
+    each device.  A plain tensor, and other placements, take
+    ``table[ids].to(dtype)`` as it is."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not (isinstance(table, DTensor) and isinstance(ids, DTensor)):
         return table[ids].to(dtype)
+    mesh = table.device_mesh
+    rows = [Replicate() if p.is_partial() else p for p in ids.placements]
+    shape = (*ids.shape, table.shape[1])
+    split = [i for i, p in enumerate(rows) if not p.is_replicate()]
+    if all(p.is_replicate() for p in table.placements) and split:
+        # The table's gradient scattered over its hidden dim on the
+        # innermost mesh dim that splits the ids, as DTensor's own gather
+        # gives it: left pending a sum there, each of AdamW's uses of it
+        # all-reduced the whole table (a tied head's gradient meets it).
+        grad_pl = [Partial() if i in split else Replicate()
+                   for i in range(mesh.ndim)]
+        if table.shape[1] % mesh.size(split[-1]) == 0:
+            grad_pl[split[-1]] = Shard(1)
+        view = table.view_as(table)
+        if view.requires_grad:
+            view.register_hook(lambda g: _to(g, grad_pl))
+        local = _local_shard(view, table.placements, rows)
+        out = local[_to(ids, rows).to_local()]
+        return _from_local(out.to(dtype), mesh, rows, shape)
     vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
     if len(vocab) != 1 or any(not p.is_replicate() for i, p in
                               enumerate(table.placements) if i != vocab[0]):
         return table[ids].to(dtype)
-    (v,), mesh = vocab, table.device_mesh
-    rows = [Replicate() if i == v or p.is_partial() else p
-            for i, p in enumerate(ids.placements)]
+    (v,) = vocab
+    rows[v] = Replicate()
     out_pl = [Partial() if i == v else p for i, p in enumerate(rows)]
     local = _local_shard(table, table.placements, out_pl)
     n = local.shape[0]
     idx = _to(ids, rows).to_local() - mesh.get_coordinate()[v] * n
     hit = (idx >= 0) & (idx < n)
     out = torch.where(hit[..., None], local[idx.clamp(0, n - 1)], 0)
-    return complete(_from_local(out.to(dtype), mesh, out_pl,
-                                (*ids.shape, table.shape[1])))
+    return complete(_from_local(out.to(dtype), mesh, out_pl, shape))
 
 
 def rows_weight(x, w):

@@ -19,8 +19,9 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (attend_on_heads,
                                               column_parallel_input,
-                                              grad_as_value, rows_weight,
-                                              split_heads, whole_mean)
+                                              grad_as_value, merge_heads,
+                                              project_heads, rows_weight,
+                                              whole_mean)
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -180,12 +181,14 @@ def _attention(q, k, v, *, causal, window, chunk_q, scale):
 def qkv_proj(params: dict, x: torch.Tensor, cfg, cos=None, sin=None):
     """x (B,S,d) → q (B,S,H,hd), k and v (B,S,KH,hd): projected, qk-normed
     where the config has it (qwen3), q and k rotated where angles are given.
-    Prefill and decode share it; they differ only in how they attend."""
+    Prefill and decode share it; they differ only in how they attend.  On
+    DTensors whose query heads split unevenly (not in a decode step), k and
+    v come one copy for each of a device's query heads, (B,S,H,hd), for
+    the attention (``sharding.project_heads``)."""
     H, KH = cfg.n_heads, cfg.n_kv_heads
     x = column_parallel_input(x, params["wq"])
-    q = split_heads(linear(x, params["wq"]), H, H)
-    k = split_heads(linear(x, params["wk"]), KH, H)
-    v = split_heads(linear(x, params["wv"]), KH, H)
+    q, k, v = (project_heads(linear, x, params[w], n, H, per_query=True)
+               for w, n in (("wq", H), ("wk", KH), ("wv", KH)))
     if "q_norm" in params:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -200,31 +203,48 @@ def gqa_block(params: dict, x: torch.Tensor, cfg, *, cos=None, sin=None,
     """Causal (G)QA self-attention: projection, attention, output.  Returns
     (output (B,S,d), the rotated (k, v)) — prefill writes the latter into
     the KV-WAL."""
-    B, S, _ = x.shape
-    q, k, v = qkv_proj(params, x, cfg, cos, sin)
+    (q, k, v), kv = _projections(params, x, cfg, cos, sin)
     o = attention(q, k, v, causal=cfg.causal, window=window,
                   chunk_q=cfg.attn_chunk_q)
-    return grad_as_value(linear(o.reshape(B, S, -1), params["wo"])), \
-        (k, v)
+    return grad_as_value(merge_heads(linear, o, params["wo"])), kv
+
+
+def _projections(params: dict, x: torch.Tensor, cfg, cos, sin):
+    """(``qkv_proj``'s q, k and v; the k and v (B,S,KH,hd) a prefill
+    caches): k and v themselves, or where they came one copy a query head
+    (heads split unevenly over a mesh), k and v projected again on their
+    own KV heads.  The input placed for the projections is freed on
+    return, before the attention."""
+    x = column_parallel_input(x, params["wq"])
+    q, k, v = qkv_proj(params, x, cfg, cos, sin)
+    if k.shape[2] == cfg.n_kv_heads:
+        return (q, k, v), (k, v)
+    ck, cv = (project_heads(linear, x, params[w], cfg.n_kv_heads,
+                            cfg.n_heads) for w in ("wk", "wv"))
+    if "k_norm" in params:
+        ck = rms_norm(params["k_norm"], ck, cfg.norm_eps)
+    if cos is not None:
+        ck = apply_rope(ck, cos, sin)
+    return (q, k, v), (ck, cv)
 
 
 def cross_attention(params: dict, x: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, cfg) -> torch.Tensor:
     """Attention of x (B,S,d) over encoder K/V (B,Senc,KH,hd), no mask and
     no rotation (whisper's decoder) → (B,S,d)."""
-    B, S, _ = x.shape
     x = column_parallel_input(x, params["wq"])
-    q = split_heads(linear(x, params["wq"]), cfg.n_heads, cfg.n_heads)
+    q = project_heads(linear, x, params["wq"], cfg.n_heads, cfg.n_heads)
     o = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q)
-    return grad_as_value(linear(o.reshape(B, S, -1), params["wo"]))
+    return grad_as_value(merge_heads(linear, o, params["wo"]))
 
 
 def cross_kv(params: dict, enc: torch.Tensor, cfg, dtype):
     """Encoder states (B,Senc,encoder_dim) → cross-attention (K, V), each
     (B,Senc,KH,hd) in ``dtype``."""
     enc = column_parallel_input(enc, params["wk"])
-    return tuple(split_heads(linear(enc, params[w], dtype), cfg.n_kv_heads,
-                             cfg.n_heads) for w in ("wk", "wv"))
+    return tuple(project_heads(lambda t, w: linear(t, w, dtype), enc,
+                               params[w], cfg.n_kv_heads, cfg.n_heads)
+                 for w in ("wk", "wv"))
 
 
 def init_gqa(gen: torch.Generator, cfg, dtype, *, n: tuple = (),

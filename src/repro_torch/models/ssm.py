@@ -6,9 +6,9 @@ card, its plain version (``ssd_scan``, re-exported here) on the CPU.
 Training asks for the plain version on every device
 (``ssm_block(..., differentiable=True)``): E's outputs carry no gradient,
 and the JAX package trains through its plain ``ssd_scan`` too.  Decode
-is the O(1) recurrent update in plain tensor ops, as in the JAX package,
-which has no kernel there.  Projections stay separate matrices (``in_z``,
-``in_x``, ``in_bc``, ``in_dt``), as there.
+is the O(1) recurrent update in plain tensor ops (``_recurrent_step``), as
+in the JAX package, which has no kernel there.  Projections stay separate
+matrices (``in_z``, ``in_x``, ``in_bc``, ``in_dt``), as there.
 
 Dtypes follow the JAX package: ``dt`` is the softplus of an fp32 sum,
 ``A = -exp(A_log)`` is fp32, ``D`` and the conv weights are cast to the
@@ -79,6 +79,24 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y + b), full[:, -(K - 1):, :]
 
 
+def _recurrent_step(x, dt, A, Bm, Cm, *, chunk, init_state):
+    """One token's O(1) recurrent update, h' = exp(dt·A) h + dt·B⊗x and
+    y = C·h: x (B,1,h,p), dt (B,1,h), A (h,), Bm and Cm (B,1,n), init_state
+    (B,h,p,n) → (y (B,1,h,p), h') in fp32, as the SSD's signature has it
+    (``chunk`` unused), so that ``scan_on_heads`` runs it on each device's
+    rows and heads: DTensor's batched product flattened the split batch
+    and heads, and gathered the state's batch over the data axis in the
+    dry run.  Broadcasts and a batched product where the JAX package writes
+    einsums: torch.einsum searches a contraction path on the host at every
+    call, which cost more host time than the rest of the layer."""
+    dA = torch.exp(dt[:, 0] * A[None, :])                    # (B,h)
+    xdt = x[:, 0].float() * dt[:, 0, :, None]                # (B,h,p)
+    dBx = xdt[..., None] * Bm[:, 0].float()[:, None, None, :]
+    h = init_state.float() * dA[..., None, None] + dBx       # (B,h,p,n)
+    y = (h @ Cm[:, 0].float()[:, None, :, None])[..., 0]
+    return y[:, None], h
+
+
 def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
               conv_x_state=None, conv_bc_state=None, ssm_state=None,
               decode: bool = False, differentiable: bool = False):
@@ -106,18 +124,10 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     A = -torch.exp(params["A_log"])
 
     if decode:
-        # O(1) recurrent update: h' = exp(dt·A) h + dt·B⊗x ; y = C·h
         assert L == 1
-        # Broadcasts and a batched product where the JAX package writes
-        # einsums: torch.einsum searches a contraction path on the host at
-        # every call, which cost more host time than the rest of the layer.
-        dA = torch.exp(dt[:, 0] * A[None, :])                # (B,h)
-        xdt = xs[:, 0].float() * dt[:, 0, :, None]           # (B,h,p)
-        dBx = xdt[..., None] * Bm[:, 0].float()[:, None, None, :]
-        h = ssm_state.float() * dA[..., None, None] + dBx    # (B,h,p,n)
-        y = (h @ Cm[:, 0].float()[:, None, :, None])[..., 0]
-        y = y[:, None].to(dt_)
-        new_ssm = h
+        y, new_ssm = scan_on_heads(_recurrent_step, xs, dt, A, Bm, Cm,
+                                   chunk=s.chunk_size, init_state=ssm_state)
+        y = y.to(dt_)
     else:
         y, new_ssm = scan_on_heads(ssd_scan if differentiable else ssd, xs,
                                    dt, A, Bm, Cm, chunk=s.chunk_size,
