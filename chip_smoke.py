@@ -181,7 +181,11 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    replace it left out, ROADMAP C.16): qwen2-moe-a2.7b x train_4k at most
    2x the JAX package's peak, and deepseek-v3-671b x train_4k at 2 layers
    at most 5e10 B with no tensor of ``we_down``'s whole shape live at its
-   peak (C.17).  Every cell prints both peaks.
+   peak (C.17) and no view run replicated; deepseek-v3-671b x train_4k on
+   2 x 16 x 16 at full depth with no view run replicated and a footprint
+   at most 7.55e11 B a device, no stack of its layers' expert gradients
+   whole over the data axes live at its peak (C.19).  Every cell prints
+   both peaks.
 14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
    3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
    ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
@@ -2308,6 +2312,13 @@ REF_DRYRUN_QWEN2_MOE = 1.00991119568e11
 QWEN2_MOE_BOUND = 2.0
 DEEPSEEK_2L_BOUND = 5e10
 DEEPSEEK_WE_DOWN = (256, 2048, 7168)
+# deepseek-v3-671b x train_4k x 2 x 16 x 16 at full depth: its footprint
+# within 7.55e11 B a device, with no stack of the 61 layers' expert
+# gradients whole over the data axes in fp32, (61, 16, 7168, 2048) or (61,
+# 16, 2048, 7168), live at its peak (ROADMAP C.19: 9.026e11 on torch 2.11
+# with three of them live, 7.379e11 with them scattered; PERF.md §6).
+DEEPSEEK_MULTI_FOOTPRINT = 7.55e11
+DEEPSEEK_EXPERT_STACKS = ((61, 16, 7168, 2048), (61, 16, 2048, 7168))
 # qwen2-vl-72b x train_4k x 16 x 16 at 2 layers: no stacked MLP gradient
 # whole in fp32 at its peak, (2, 8192, 29568) or (2, 29568, 8192) (ROADMAP
 # C.18: the full cell held (80, 29568, 8192) pending a sum, all-reduced).
@@ -2569,7 +2580,8 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     # group, mamba2-1.3b's SMOKE train cell on a fake (2, 2) mesh (its
     # cumsum's backward flips), mamba2-1.3b x train_4k on 16 x 16, and
     # both train_4k cells on 2 x 16 x 16 (the batch split over pod and
-    # data, the head views: ROADMAP C.12)
+    # data, the head views: ROADMAP C.12); the serving cells; the MoE
+    # train cells (C.16, C.17, C.19)
     cells = dryrun_cells({
         "dryrun_cell": ("qwen3-0.6b", "train_4k", False, False),
         "dryrun_mamba2_smoke": ("mamba2-1.3b", "train", False, True),
@@ -2579,6 +2591,8 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         "dryrun_qwen2_moe": ("qwen2-moe-a2.7b", "train_4k", False, False),
         "dryrun_deepseek_2l": ("deepseek-v3-671b", "train_4k", False, False,
                                {"n_layers": 2}),
+        "dryrun_deepseek_multi": ("deepseek-v3-671b", "train_4k", True,
+                                  False),
         "dryrun_qwen2_vl_2l": ("qwen2-vl-72b", "train_4k", False, False,
                                {"n_layers": 2}),
         **{key: (arch, shape, multi, False)
@@ -2662,6 +2676,20 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
         fail(f"dry-run cell dryrun_deepseek_2l: peak on the reference's "
              f"terms {peak} B (bound {DEEPSEEK_2L_BOUND}), we_down whole at "
              f"it: {whole}")
+    # DeepSeek's experts run on each device's groups and experts, their
+    # gradients scattered over the data axes a layer at a time (C.19).
+    for key in ("dryrun_deepseek_2l", "dryrun_deepseek_multi"):
+        views = {k: v for k, v in res[key]["replicated_calls"].items()
+                 if k in ("view", "_unsafe_view")}
+        if views:
+            fail(f"dry-run cell {key}: views run replicated {views}")
+    mem = res["dryrun_deepseek_multi"]["memory"]
+    whole = [h for h in mem["peak_holders"]
+             if tuple(h[1]) in DEEPSEEK_EXPERT_STACKS and h[0] != "new_empty"]
+    if whole or mem["footprint_bytes"] > DEEPSEEK_MULTI_FOOTPRINT:
+        fail(f"dry-run cell dryrun_deepseek_multi: footprint "
+             f"{mem['footprint_bytes']} B (bound {DEEPSEEK_MULTI_FOOTPRINT}),"
+             f" expert gradients whole at its peak: {whole}")
     whole = [h for h in res["dryrun_qwen2_vl_2l"]["memory"]["peak_holders"]
              if tuple(h[1]) in QWEN2_VL_MLP and h[2] == "float32"]
     if whole:
@@ -3721,8 +3749,8 @@ def main() -> None:
         f"{scaleout['dryrun_cell']['view_rule_registered']}")
     for key in ("dryrun_cell", "dryrun_mamba2", "dryrun_mamba2_multi",
                 "dryrun_qwen3_multi", "dryrun_qwen2_moe",
-                "dryrun_deepseek_2l", "dryrun_qwen2_vl_2l",
-                *REF_DRYRUN_SERVING):
+                "dryrun_deepseek_2l", "dryrun_deepseek_multi",
+                "dryrun_qwen2_vl_2l", *REF_DRYRUN_SERVING):
         c = scaleout[key]
         ref = REF_DRYRUN_SERVING[key][3] if key in REF_DRYRUN_SERVING \
             else (REF_DRYRUN_PEAK, REF_DRYRUN_COLLECTIVES) \

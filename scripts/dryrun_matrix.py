@@ -3,6 +3,7 @@ cell, several at once, then one table of the records.
 
     PYTHONPATH=src python scripts/dryrun_matrix.py [--jobs 8]
         [--src src] [--out experiments/dryrun_matrix] [--ref REF.json ...]
+        [--against OTHER_OUT]
 
 Each cell runs ``python -m repro_torch.launch.dryrun --arch A --shape S
 --mesh M --out <out>/<A>_<S>_<M>.json`` with ``--src`` first on its
@@ -14,7 +15,10 @@ not ``ok``, and any op run replicated; the last line counts the cells by
 status (``ok``, SKIP, FAIL).  Each ``--ref`` is a record of the JAX
 package's dry run (``python -m repro.launch.dryrun ... --out REF.json``):
 a cell it holds gets the reference's peak and collectives a device beside
-the port's, and the port's over them.
+the port's, and the port's over them.  ``--against`` names another
+matrix's ``--out`` (a parent's run): each cell both hold gets its peak,
+footprint and collectives over that run's, and the last lines list the
+cells where one of them is more than 5% above it.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ def main() -> None:
     ap.add_argument("--out", default="experiments/dryrun_matrix")
     ap.add_argument("--timeout", type=float, default=3000.0)
     ap.add_argument("--ref", action="append", default=[])
+    ap.add_argument("--against", default=None)
     args = ap.parse_args()
     ref = {(r["arch"], r["shape"], r["mesh"]): r["roofline"]
            for path in args.ref for r in json.load(open(path))
@@ -75,7 +80,7 @@ def main() -> None:
                 os.replace(path + ".json.part", path + ".json")
             del running[key]
         time.sleep(1.0)
-    counts, rows = {}, []
+    counts, rows, above = {}, [], []
     for a in ARCHS:
         for s in SHAPES:
             for m in MESHES:
@@ -83,6 +88,8 @@ def main() -> None:
                 recs = json.load(open(path)) if os.path.exists(path) else \
                     [{"status": "FAIL: no record"}]
                 r = recs[-1]
+                base = _terms(os.path.join(args.against, f"{a}_{s}_{m}.json")
+                              ) if args.against else None
                 status = r["status"]
                 kind = "ok" if status == "ok" else status.split("(")[0][:4]
                 counts[kind] = counts.get(kind, 0) + 1
@@ -93,6 +100,12 @@ def main() -> None:
                 peak, coll = mem["peak_reference_terms"], \
                     r["roofline"]["collective_bytes"]
                 rf = ref.get((a, s, r["mesh"]))
+                over = [x / b for x, b in zip(
+                    (peak, mem["footprint_bytes"], coll), base)] \
+                    if base else None
+                if over and max(over) > 1.05:
+                    above.append(f"{a} x {s} x {m}: " + " / ".join(
+                        f"{x:.3f}x" for x in over))
                 rows.append(
                     f"{a} x {s} x {m}: {peak:.4e} / "
                     f"{mem['footprint_bytes']:.4e} / {coll:.4e}"
@@ -101,9 +114,27 @@ def main() -> None:
                     + (f" | ref {rf['peak_memory_per_device']:.4e} / "
                        f"{rf['collective_bytes']:.4e}: "
                        f"{peak / rf['peak_memory_per_device']:.2f}x / "
-                       f"{coll / rf['collective_bytes']:.2f}x" if rf else ""))
+                       f"{coll / rf['collective_bytes']:.2f}x" if rf else "")
+                    + (" | against " + " / ".join(f"{x:.3f}x" for x in over)
+                       if over else ""))
     print("\n".join(rows))
+    if args.against:
+        print(f"above {args.against} by more than 5%: {len(above)}")
+        print("\n".join(above))
     print(f"cells: {counts} in {time.time() - t0:.0f} s")
+
+
+def _terms(path: str):
+    """(peak on the reference's terms, footprint, collectives) of the ok
+    record at ``path``, or None."""
+    if not os.path.exists(path):
+        return None
+    r = json.load(open(path))[-1]
+    if r.get("status") != "ok":
+        return None
+    return (r["memory"]["peak_reference_terms"],
+            r["memory"]["footprint_bytes"],
+            r["roofline"]["collective_bytes"])
 
 
 if __name__ == "__main__":

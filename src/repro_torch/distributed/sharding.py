@@ -651,38 +651,58 @@ def merge_heads(proj, o, w):
 
 
 def rows_on_shards(fn, x, *ws):
-    """``fn(x, *ws)``, a product of rows ``x`` with whole weights ``ws``
-    whose output has ``x``'s rows (dim 0), on each device's rows where
-    ``x`` is a DTensor: ``x`` split on its rows over every mesh dim where
-    they divide (a split of another dim moves there), replicated over the
-    others; each device runs ``fn`` with plain tensors, the weights'
-    gradients each device's part of a sum.  The MoE's experts where the
-    model axis does not divide them (qwen2-moe-a2.7b's 60 on 16): DTensor
-    split the expert inputs on their hidden dim, and the experts' products
-    flattened their split groups with the slots of a permuted tensor, a
-    view the dry run ran replicated.  Plain tensors, and weights split on
-    any mesh dim (experts split as their weights), go to ``fn`` as they
-    are."""
+    """``fn(x, *ws)``, the MoE's experts (``moe._experts``: x (G,E,C,d),
+    the groups' slots of each expert, and each weight (E,·,·) → (G,E,C,·)),
+    on each device's groups and experts where ``x`` is a DTensor: each mesh
+    dim that splits every weight's experts (dim 0) splits x's experts (dim
+    1) so, and each other mesh dim splits x's groups (dim 0) where they
+    divide (a split of another dim moves there), or leaves x whole; each
+    device runs ``fn`` with plain tensors on its own groups and experts,
+    the output comes back placed so, and a weight's gradient is split as
+    the weight on its experts and each device's part of a sum elsewhere
+    (``transformer._body`` scatters that sum: ``grad_split_as``).  XLA's
+    partitioner keeps the reference's groups and experts split through its
+    expert products.  DTensor split the expert inputs on their hidden dim
+    where the model axis does not divide the experts (qwen2-moe-a2.7b's 60
+    on 16), and flattened the split groups and experts with the slots of
+    the products (DeepSeek-V3's 256 on 16): views the dry run ran
+    replicated, 9.4e9 B a layer.  Plain tensors, a mesh of one device,
+    weights split on another dim, and an ``x`` pending a sum on a mesh
+    dim that its groups do not divide (a decode step's one group, its
+    tokens summed over the data axes: completed there, every device of
+    those axes would run the same products, and deepseek-v3-671b x
+    decode_32k x 2 x 16 x 16 moved 30% more bytes) go to ``fn`` as they
+    are; a sum over a mesh dim that splits the groups is scattered onto
+    them."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not isinstance(x, DTensor) or any(
-            isinstance(w, DTensor) and not all(
-                p.is_replicate() for p in w.placements) for w in ws):
+    if not isinstance(x, DTensor):
         return fn(x, *ws)
-    mesh, want, rows = x.device_mesh, [], 1
+    mesh, want, w_want, rows, experts = x.device_mesh, [], [], 1, 1
     for i, p in enumerate(x.placements):
         n = mesh.size(i)
-        if p == Shard(0) or x.shape[0] % (rows * n) == 0:
+        w_pl = {w.placements[i] if isinstance(w, DTensor) else Replicate()
+                for w in ws}
+        if w_pl == {Shard(0)} and x.shape[1] % (experts * n) == 0:
+            want.append(Shard(1))
+            w_want.append(Shard(0))
+            experts *= n
+        elif w_pl != {Replicate()}:
+            return fn(x, *ws)
+        elif p == Shard(0) or x.shape[0] % (rows * n) == 0:
             want.append(Shard(0))
+            w_want.append(Replicate())
             rows *= n
         else:
             want.append(Replicate())
-    if rows == 1:
+            w_want.append(Replicate())
+    if rows * experts == 1 or any(p.is_partial() and q.is_replicate()
+                                  for p, q in zip(x.placements, want)):
         return fn(x, *ws)
-    whole = [Replicate()] * mesh.ndim
-    out = fn(_to(x, want).to_local(), *(_local_shard(
-        grad_as_value(_as_dtensor(w, mesh)), whole, want) for w in ws))
+    out = fn(_to(x, want).to_local(), *(
+        _local_shard(_as_dtensor(w, mesh), w_want, want) for w in ws))
     return _from_local(out, mesh, want, (out.shape[0] * rows,
-                                         *out.shape[1:]))
+                                         out.shape[1] * experts,
+                                         *out.shape[2:]))
 
 
 def scan_on_heads(scan, x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
@@ -945,7 +965,7 @@ def grad_as_value(t):
     return t
 
 
-def grad_split_as(t):
+def grad_split_as(t, scatter=None):
     """A view of ``t`` whose gradient is split as ``t`` is on each mesh dim
     that splits ``t`` when the backward reaches it (a pending sum there is
     reduce-scattered), its other mesh dims as the gradient has them (a
@@ -956,17 +976,46 @@ def grad_split_as(t):
     whole on every device, and their stack was all-reduced whole
     (qwen2-vl-72b's MLP gradients, (80, 8192, 29568) in fp32: ROADMAP
     C.18).  The sum over the data axes stays pending, for the optimizer,
-    as before."""
-    from torch.distributed.tensor import DTensor
-    if not isinstance(t, DTensor) or not t.requires_grad or all(
-            p.is_replicate() for p in t.placements):
+    as before; with ``scatter``, a dim of ``t``, each mesh dim that leaves
+    ``t`` whole splits the gradient on that dim instead, while it divides
+    (a pending sum reduce-scattered there; ``t`` replicated on every mesh
+    dim too): the MoE's expert weights (``EXPERT_GRAD_SCATTER``), whose
+    fp32 gradients stayed whole on the data axes until the ``unbind``'s
+    backward stacked every layer's (DeepSeek-V3's three (61, 16, 7168,
+    2048) stacks, 5.7e10 B each; ROADMAP C.19).  AdamW gathers such a
+    gradient a slice of rows at a time (``optimizer._gathered``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor) or not t.requires_grad or (
+            scatter is None and all(p.is_replicate() for p in t.placements)):
         return t
-    mine = tuple(t.placements)
+    mine, mesh = tuple(t.placements), t.device_mesh
+    dim = None if scatter is None else scatter % t.dim()
+    across = math.prod(mesh.size(i) for i, p in enumerate(mine)
+                       if type(p) is Shard and p.dim == dim)
+
+    def place(g):
+        want, split = [], across
+        for i, (p, q) in enumerate(zip(g.placements, mine)):
+            if not q.is_replicate():
+                want.append(q)
+            elif dim is not None and not isinstance(p, Shard) and \
+                    mesh.size(i) > 1 and \
+                    t.shape[dim] % (split * mesh.size(i)) == 0:
+                want.append(Shard(dim))
+                split *= mesh.size(i)
+            else:
+                want.append(p)
+        return _to(g, want)
+
     t = t.view_as(t)
-    t.register_hook(lambda g: _to(g, [
-        p if q.is_replicate() else q for p, q in zip(g.placements, mine)])
-        if isinstance(g, DTensor) else g)
+    t.register_hook(lambda g: place(g) if isinstance(g, DTensor) else g)
     return t
+
+
+# The dim of each MoE expert weight, (E, d, ff) or (E, ff, d), that its
+# gradient is scattered on where the weight is whole (``grad_split_as``):
+# the model's hidden dim d.
+EXPERT_GRAD_SCATTER = {"we_gate": -2, "we_up": -2, "we_down": -1}
 
 
 def whole_mean(t):

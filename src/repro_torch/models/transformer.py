@@ -72,9 +72,14 @@ def layers(stacked: dict, n: int) -> list[dict]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
-def _map_leaves(fn, tree: dict) -> dict:
-    """``tree`` (nested dicts) with ``fn`` applied to every leaf."""
-    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+def _grads_split(tree: dict) -> dict:
+    """``tree`` (nested dicts) with every leaf passed through
+    ``sharding.grad_split_as``, an expert weight's with its hidden dim to
+    scatter on (``EXPERT_GRAD_SCATTER``)."""
+    from repro_torch.distributed.sharding import (EXPERT_GRAD_SCATTER,
+                                                  grad_split_as)
+    return {k: _grads_split(v) if isinstance(v, dict)
+            else grad_split_as(v, EXPERT_GRAD_SCATTER.get(k))
             for k, v in tree.items()}
 
 
@@ -83,12 +88,12 @@ def _body(cfg: ModelConfig, train: bool, fn, *args):
     ``cfg.remat`` (the JAX package's ``jax.checkpoint(body)``).  The
     layer's parameters (a dict among ``args``) have their gradients split
     as they are where they are DTensors (``sharding.grad_split_as``; ROADMAP
-    C.18), on views made here: a view made with the layer's ``unbind``
-    comes before every layer's ops, and autograd runs its backward after
-    every layer's, each layer's gradient whole until then."""
-    from repro_torch.distributed.sharding import grad_split_as
-    args = tuple(_map_leaves(grad_split_as, a) if isinstance(a, dict)
-                 else a for a in args)
+    C.18), the MoE's expert weights' also scattered over the mesh dims that
+    leave them whole (C.19), on views made here: a view made with the
+    layer's ``unbind`` comes before every layer's ops, and autograd runs its
+    backward after every layer's, each layer's gradient whole until then."""
+    args = tuple(_grads_split(a) if isinstance(a, dict) else a
+                 for a in args)
     if train and cfg.remat:
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)

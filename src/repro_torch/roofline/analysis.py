@@ -43,12 +43,14 @@ _KINDS = {"all_gather_into_tensor": "all-gather",
 _WRAPS = {"_wrap_tensor_autograd"}
 
 
-def _storage_key(t):
-    """The address of the storage that holds ``t``, or None."""
+def _storage(t):
+    """(The address of the storage that holds ``t``, that storage), or
+    (None, None)."""
     try:
-        return t.untyped_storage()._cdata
+        s = t.untyped_storage()
     except (RuntimeError, NotImplementedError):
-        return None
+        return None, None
+    return s._cdata, s
 
 
 def _nbytes(x) -> int:
@@ -102,18 +104,26 @@ class ShardedTrace(TorchDispatchMode):
         self.log: list = []
         self.allocs: dict = {}              # handle -> (op, shape, dtype)
         self._handle: dict = {}             # storage key -> handle, live
-        self._held: dict = {}               # handle -> [bytes, tensors, keys]
+        # handle -> [bytes, tensors, {key: storage}]
+        self._held: dict = {}
         # Handles of the outputs that replace donated arguments (the dry
         # run's ``_sharded_run`` sets them when the step returns).
         self.replacing: set = set()
 
     def _count(self, o, name: str, holds=None) -> None:
         """Count ``o``, a fresh output of op ``name``, with the storage it
-        shares with a counted tensor (``holds``, the tensor it wraps)."""
-        keys = {_storage_key(o)}
-        if holds is not None:
-            keys.add(_storage_key(holds))
-        keys.discard(None)
+        shares with a counted tensor (``holds``, the tensor it wraps).  A
+        handle keeps the storages of its keys until it is freed, so that no
+        storage made meanwhile takes a live key's address: keyed by address
+        alone, a fresh output at the address of a storage freed under a
+        live handle (a collective's result that the wrapper around it
+        outlived) joined that handle and went uncounted, and a cell's
+        footprint moved with the process's allocation order
+        (qwen2-moe-a2.7b x train_4k x 2 x 16 x 16: 3.066e11 to 3.398e11 B
+        in three runs of one tree, ``PERF.md`` §6)."""
+        found = dict(_storage(t) for t in (o, holds) if t is not None)
+        found.pop(None, None)
+        keys = set(found)
         handle = next((self._handle[k] for k in keys if k in self._handle),
                       None)
         if handle is None:
@@ -123,10 +133,10 @@ class ShardedTrace(TorchDispatchMode):
             self.log.append((handle, n))
             self.allocs[handle] = (name, tuple(o.shape),
                                    str(o.dtype).removeprefix("torch."))
-            self._held[handle] = [n, 0, set()]
+            self._held[handle] = [n, 0, {}]
         held = self._held[handle]
         held[1] += 1
-        held[2] |= keys
+        held[2].update(found)
         self._handle.update(dict.fromkeys(keys, handle))
         weakref.finalize(o, self._free, handle)
 
@@ -151,7 +161,7 @@ class ShardedTrace(TorchDispatchMode):
         for t in tensors:
             if isinstance(t, DTensor):
                 t = t.to_local()
-            key = _storage_key(t) if isinstance(t, torch.Tensor) else None
+            key = _storage(t)[0] if isinstance(t, torch.Tensor) else None
             if key in self._handle:
                 out.add(self._handle[key])
         return out

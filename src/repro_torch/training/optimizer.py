@@ -104,6 +104,27 @@ def _write_rows(out, start: int, part) -> None:
     out.to_local()[start:start + part.shape[0]].copy_(part.to_local())
 
 
+def _gathered(g, p):
+    """The gradient ``g`` whole on each mesh dim that splits it where its
+    parameter ``p`` is replicated (an all-gather), its other mesh dims as
+    they are; ``g`` itself where it has none such, or is a plain tensor.
+    A MoE expert weight's gradient arrives scattered over the data axes
+    (``sharding.grad_split_as``, ROADMAP C.19), its parameter and moments
+    whole there: each slice of rows is gathered before its update, one
+    slice's bytes at a time, so that the update's operations and the new
+    leaves' placements are those of a gradient reduced whole.  Updating
+    each device's part and gathering the new rows would move the
+    parameter's and both moments' bytes, not the gradient's: three times
+    as many with fp32 moments."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not (isinstance(g, DTensor) and isinstance(p, DTensor)):
+        return g
+    want = [q if isinstance(gp, Shard) and q.is_replicate() else gp
+            for gp, q in zip(g.placements, p.placements)]
+    return g if want == list(g.placements) else \
+        g.redistribute(g.device_mesh, want)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     """Returns (new_params, new_state, grad_norm); the inputs stay as they
@@ -111,7 +132,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     each slice written into the new leaf, m and v: the same operations on
     each element as on the whole leaf, so the same bits, without fp32
     temporaries the size of the whole leaf (a stacked expert leaf is
-    (layers, experts, d, ff))."""
+    (layers, experts, d, ff)).  A sliced leaf's gradient split where its
+    parameter is whole is gathered a slice at a time (``_gathered``); a
+    leaf updated whole takes the placements DTensor's rules give."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
@@ -139,7 +162,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
         out = None
         for a in range(0, n, rows):
             b = min(a + rows, n)
-            part = upd(p[a:b], g[a:b], m[a:b], v[a:b])
+            part = upd(p[a:b], _gathered(g[a:b], p), m[a:b], v[a:b])
             if out is None:
                 out = [_new_rows(t, n) for t in part]
             for o, t in zip(out, part):

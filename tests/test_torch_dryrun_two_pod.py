@@ -68,14 +68,29 @@ def gather_rule(request, monkeypatch):
     return request.param
 
 
+def _refused(op, *args) -> bool:
+    """Whether this torch's DTensor refuses ``op(*args)``, found by running
+    it (2.11's has no rule for a gather whose ids are split twice on one
+    dim, nor for some flattens of a split dim)."""
+    try:
+        op(*args)
+    except (RuntimeError, ValueError, NotImplementedError, AssertionError):
+        return True
+    return False
+
+
 def test_gather_keeps_the_batch_split(mesh, gather_rule):
     """The embedding's gather: a vocab table split over the model axis and
     token ids split over pod and data give rows split over pod and data.
-    Where DTensor refuses the gather, it runs again on ids gathered over
-    data and is counted, and its output is split over data again (a slice
-    of each device's rows: no collective beyond the ids' gather)."""
+    Where DTensor refuses the gather (the ``2.11`` stand-in, or this
+    torch's own rule where it refuses, as 2.11's does), it runs again on
+    ids gathered over data and is counted, and its output is split over
+    data again (a slice of each device's rows: no collective beyond the
+    ids' gather)."""
     table = _dt(mesh, (256, 64), ("model",))
     ids = _dt(mesh, (8, 16), (("pod", "data"),), torch.int64)
+    refused = gather_rule == "2.11" or _refused(lambda t, i: t[i], table,
+                                                ids)
     outs = []
     trace, replicated, gathered = dryrun._sharded_run(
         lambda t, i: outs.append(t[i]) or outs[-1] * 2, [table, ids])
@@ -83,7 +98,7 @@ def test_gather_keeps_the_batch_split(mesh, gather_rule):
     assert tuple(rows.shape) == (8, 16, 64)
     assert tuple(rows.placements[:2]) == (_shard(0), _shard(0))
     assert tuple(rows.to_local().shape[:2]) == (2, 16)
-    if gather_rule == "2.11":
+    if refused:
         assert replicated == {"index": 1} and gathered["index"] > 0
     else:
         assert replicated == {}
@@ -151,9 +166,10 @@ def test_smoke_step_keeps_the_batch_split(mesh, gather_rule, arch,
 
 def test_view_rule_takes_no_strided_placement(mesh):
     """A flatten of (batch, heads) with the heads split over the model
-    axis, which this torch places as ``_StridedShard``: the dry run's view
-    rule moves the heads' shard onto the batch instead, and places the
-    flattened dim as a plain ``Shard`` on every mesh dim."""
+    axis, which this torch places as ``_StridedShard`` (2.13) or refuses
+    (2.11): the dry run's view rule moves the heads' shard onto the batch
+    instead, and places the flattened dim as a plain ``Shard`` on every
+    mesh dim."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
     from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
@@ -163,7 +179,8 @@ def test_view_rule_takes_no_strided_placement(mesh):
     spec = DTensorSpec(mesh, tuple(x.placements),
                        tensor_meta=x._spec.tensor_meta)
     schema = OpSchema(view, (OpStrategy([OpSpec(spec)]), [16, 16, 4]), {})
-    assert dryrun._strided(dryrun._native_view(view)(schema))
+    native = dryrun._native_view(view)
+    assert _refused(native, schema) or dryrun._strided(native(schema))
     (choice,) = dryrun._view_strategy(schema).strategies
     assert tuple(choice.output_spec.placements) == (_shard(0),) * 3
     assert tuple(choice.input_specs[0].placements) == (_shard(0),) * 3
