@@ -180,12 +180,16 @@ of the JAX package.  Phases, each of which exits non-zero on any failure:
    argument + temp - alias: the donated state and the outputs that
    replace it left out, ROADMAP C.16): qwen2-moe-a2.7b x train_4k at most
    2x the JAX package's peak, and deepseek-v3-671b x train_4k at 2 layers
-   at most 5e10 B with no tensor of ``we_down``'s whole shape live at its
-   peak (C.17) and no view run replicated; deepseek-v3-671b x train_4k on
+   at most the JAX package's peak with no tensor of ``we_down``'s whole
+   shape live at its peak (C.17) and no view run replicated;
+   deepseek-v3-671b x train_4k on
    2 x 16 x 16 at full depth with no view run replicated and a footprint
    at most 7.55e11 B a device, no stack of its layers' expert gradients
-   whole over the data axes live at its peak (C.19).  Every cell prints
-   both peaks.
+   whole over the data axes live at its peak (C.19); in that cell and
+   both mamba2-1.3b x train_4k cells the new parameters and moments come
+   out of AdamW placed as their specs (``memory.outputs_placed`` empty)
+   and the footprint is at least the arguments and the donated state
+   (C.20).  Every cell prints both peaks.
 14. The engine comparison (after phase 8): the port's ``TideDB`` (phase
    3's config, its batched reads launching B and C), ``rocksdb(sim)`` and
    ``blobdb(sim)`` (``core/lsm_baseline.py`` with 512-entry memtables,
@@ -2306,11 +2310,16 @@ MULTI_PEAK_BOUND = {"qwen3-0.6b": 1.5, "mamba2-1.3b": 1.5}
 # C.16): qwen2-moe-a2.7b x train_4k x 16 x 16 within 2x the JAX package's
 # peak for it (``python -m repro.launch.dryrun --arch qwen2-moe-a2.7b
 # --shape train_4k --mesh single`` on the CPU), and deepseek-v3-671b x
-# train_4k x 16 x 16 at 2 layers within 5e10 B, with no tensor of
-# ``we_down``'s whole (experts, ff, d) shape live at its peak (C.17).
+# train_4k x 16 x 16 at 2 layers within the JAX package's peak for it
+# (``... --arch deepseek-v3-671b --shape train_4k --mesh single --override
+# n_layers=2``), with no tensor of ``we_down``'s whole (experts, ff, d)
+# shape live at its peak (C.17).  That cell was held within 5e10 B while
+# the trace counted as freed the outputs autograd saves for the backward
+# (ROADMAP C.21: 3.572e10 B on torch 2.11 and 2.13, 5.834e10 counted).
 REF_DRYRUN_QWEN2_MOE = 1.00991119568e11
 QWEN2_MOE_BOUND = 2.0
-DEEPSEEK_2L_BOUND = 5e10
+REF_DRYRUN_DEEPSEEK_2L = 7.0644734096e10
+DEEPSEEK_2L_BOUND = 1.0
 DEEPSEEK_WE_DOWN = (256, 2048, 7168)
 # deepseek-v3-671b x train_4k x 2 x 16 x 16 at full depth: its footprint
 # within 7.55e11 B a device, with no stack of the 61 layers' expert
@@ -2323,6 +2332,13 @@ DEEPSEEK_EXPERT_STACKS = ((61, 16, 7168, 2048), (61, 16, 2048, 7168))
 # whole in fp32 at its peak, (2, 8192, 29568) or (2, 29568, 8192) (ROADMAP
 # C.18: the full cell held (80, 29568, 8192) pending a sum, all-reduced).
 QWEN2_VL_MLP = ((2, 8192, 29568), (2, 29568, 8192))
+# Train cells whose new parameters and moments must come out of AdamW
+# placed as their specs (``memory.outputs_placed`` empty), their footprint
+# at least the arguments and the donated state (ROADMAP C.20: deepseek's
+# ``wq_b`` came out split over the data axis and pending a sum over the
+# pod axis, mamba2's whole-table embedding split on its hidden dim).
+STATE_PLACED_CELLS = ("dryrun_deepseek_multi", "dryrun_mamba2",
+                      "dryrun_mamba2_multi")
 
 
 def _dryrun_code(arch: str, shape: str, multi_pod: bool, smoke: bool,
@@ -2672,9 +2688,11 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     peak = cell["memory"]["peak_reference_terms"]
     whole = [h for h in cell["memory"]["peak_holders"]
              if tuple(h[1][-3:]) == DEEPSEEK_WE_DOWN]
-    if whole or peak > DEEPSEEK_2L_BOUND:
+    cell["peak_over_reference"] = peak / REF_DRYRUN_DEEPSEEK_2L
+    if whole or peak > DEEPSEEK_2L_BOUND * REF_DRYRUN_DEEPSEEK_2L:
         fail(f"dry-run cell dryrun_deepseek_2l: peak on the reference's "
-             f"terms {peak} B (bound {DEEPSEEK_2L_BOUND}), we_down whole at "
+             f"terms {peak} B (bound {DEEPSEEK_2L_BOUND}x the reference's "
+             f"{REF_DRYRUN_DEEPSEEK_2L}), we_down whole at "
              f"it: {whole}")
     # DeepSeek's experts run on each device's groups and experts, their
     # gradients scattered over the data axes a layer at a time (C.19).
@@ -2695,6 +2713,18 @@ def scaleout_phase(seed: int, workdir: str, train: dict, served: dict,
     if whole:
         fail(f"dry-run cell dryrun_qwen2_vl_2l: MLP gradients whole at its "
              f"peak: {whole}")
+    # The new train state comes out of the update placed as its specs, as
+    # the reference's out_shardings pin it: the dry run moved no leaf of it
+    # after the step, and the footprint holds the old state and the new
+    # (ROADMAP C.20).
+    for key in STATE_PLACED_CELLS:
+        mem = res[key]["memory"]
+        if mem["outputs_placed"] or mem["footprint_bytes"] < \
+                mem["argument_bytes"] + mem["donated_bytes"]:
+            fail(f"dry-run cell {key}: new state placed by DTensor's rules "
+                 f"{mem['outputs_placed']}, footprint "
+                 f"{mem['footprint_bytes']} B under the old and new state's "
+                 f"{mem['argument_bytes'] + mem['donated_bytes']}")
     res["phase_s"] = time.perf_counter() - t_phase
     gc.collect()
     return res
@@ -3756,10 +3786,12 @@ def main() -> None:
             else (REF_DRYRUN_PEAK, REF_DRYRUN_COLLECTIVES) \
             if key == "dryrun_cell" else REF_DRYRUN_MULTI.get(c["arch"])
         over = ""
-        if key == "dryrun_qwen2_moe":
+        on_terms = {"dryrun_qwen2_moe": REF_DRYRUN_QWEN2_MOE,
+                    "dryrun_deepseek_2l": REF_DRYRUN_DEEPSEEK_2L}
+        if key in on_terms:
             over = (f" (on the reference's terms "
                     f"{c['peak_over_reference']:.4f}x the reference's "
-                    f"{REF_DRYRUN_QWEN2_MOE} B)")
+                    f"{on_terms[key]} B)")
         elif "peak_over_reference" in c:
             over = (f" (footprint {c['peak_over_reference']:.4f}x and "
                     f"collectives {c['collectives_over_reference']:.4f}x the "
@@ -3776,6 +3808,10 @@ def main() -> None:
             f"{mem['peak_reference_terms']:.10e} B a device, footprint "
             f"{mem['footprint_bytes']:.10e} B"
             + (f" (the cache's shards {cache} B)" if cache else "")
+            + (f" (the old and new state {mem['argument_bytes']} + "
+               f"{mem['donated_bytes']} B, leaves placed after the step "
+               f"{mem['outputs_placed']})" if key in STATE_PLACED_CELLS
+               else "")
             + f", collectives {c['roofline']['collective_bytes']:.10e} "
             f"B{over}, calls run replicated {c['replicated_calls']} "
             f"gathering {c['replicated_bytes']} B, view rule registered "

@@ -104,7 +104,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.registry import (ARCH_IDS, SHAPES, ShapeSpec,
                                           get_config, input_specs, runnable)
-from repro_torch.core.tree import leaves, unflatten
+from repro_torch.core.tree import (leaves, leaves_with_path, path_str,
+                                   unflatten)
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import (init_fake_process_group,
                                      make_production_mesh, production_shape)
@@ -660,16 +661,20 @@ def _ensure_view_rule() -> bool:
     return True
 
 
-def _sharded_run(step, args, replaced=()):
+def _sharded_run(step, args, donated=None):
     """Run ``step`` on DTensor arguments under ``ShardedTrace``; plain
     tensors the step makes itself count as replicated → (the trace, the
     ops run again on replicated inputs by name: their count, and the bytes
-    a device holds of the inputs they gathered).  The trace's ``replacing``
-    names the allocations that the step's outputs numbered in ``replaced``
-    hold when it returns."""
+    a device holds of the inputs they gathered).  ``donated`` maps an
+    argument's index to the index of the output that replaces it
+    (``DONATED``): each leaf of such an output is placed as the argument's
+    leaf, inside the trace (``_place_as_donated``, whose moves the trace's
+    ``outputs_placed`` lists), and the trace's ``replacing`` names the
+    allocations those outputs hold when it returns."""
     from torch.distributed.tensor.experimental import implicit_replication
     _ensure_flip_rule()
     _ensure_view_rule()
+    donated = donated or {}
     trace, gaps = roofline.ShardedTrace(), _DTensorGaps()
     # The peak counts a tensor until its last reference goes: with the
     # cycle collector off, a tensor held in a reference cycle counts until
@@ -680,12 +685,48 @@ def _sharded_run(step, args, replaced=()):
     try:
         with implicit_replication(), trace, gaps:
             out = step(*args)
-        trace.replacing = trace.handles_of(leaves([out[i] for i in replaced]))
+            if donated:
+                out = list(out)
+                trace.outputs_placed = _place_as_donated(out, args, donated,
+                                                         trace)
+        trace.replacing = trace.handles_of(
+            leaves([out[i] for i in donated.values()]))
         del out
     finally:
         if collecting:
             gc.enable()
     return trace, gaps.replicated, gaps.replicated_bytes
+
+
+def _place_as_donated(out: list, args, donated: dict, trace) -> list:
+    """Place in ``out``, in place, each DTensor leaf of an output that
+    replaces a donated argument as that argument's leaf is placed: the
+    reference's ``out_shardings`` pin the new train state and cache as
+    their specs, and XLA counts the moves that takes (ROADMAP C.20) →
+    ``[leaf, placements it had, its argument's, collective bytes the move
+    took]`` for each leaf moved; none where the step placed them so.  A
+    leaf of another shape than its argument's (a toy step's transposed
+    output) is no buffer of the argument's and is left as it is: the
+    argument's placements name dims of the argument's shape."""
+    from torch.distributed.tensor import DTensor
+    moved = []
+    for a, o in donated.items():
+        new = []
+        for (path, t), ref in zip(leaves_with_path(out[o]), leaves(args[a]),
+                                  strict=True):
+            if isinstance(t, DTensor) and isinstance(ref, DTensor) and \
+                    t.shape == ref.shape and \
+                    tuple(t.placements) != tuple(ref.placements):
+                before = trace.stats.total_bytes
+                placed = t.redistribute(ref.device_mesh, ref.placements)
+                name = "/".join(filter(None, (str(o), path_str(path))))
+                moved.append([name, str(t.placements),
+                              str(ref.placements),
+                              trace.stats.total_bytes - before])
+                t = placed
+            new.append(t)
+        out[o] = unflatten(out[o], new)
+    return moved
 
 
 def _local_bytes(tree) -> int:
@@ -708,8 +749,7 @@ def traced_memory(step, args, donated: dict) -> tuple:
     buffers), with ``peak_holders``, the largest allocations live at it."""
     arg_bytes = _local_bytes(args)
     donated_bytes = _local_bytes([args[i] for i in donated])
-    trace, replicated, replicated_bytes = _sharded_run(
-        step, args, tuple(donated.values()))
+    trace, replicated, replicated_bytes = _sharded_run(step, args, donated)
     kept = trace.replacing
     return trace, replicated, replicated_bytes, {
         "argument_bytes": arg_bytes, "donated_bytes": donated_bytes,
@@ -717,7 +757,8 @@ def traced_memory(step, args, donated: dict) -> tuple:
         "footprint_bytes": arg_bytes + trace.peak_live_bytes,
         "peak_reference_terms": arg_bytes - donated_bytes
         + trace.peak_without(kept),
-        "peak_holders": trace.holders_at_peak(kept)}
+        "peak_holders": trace.holders_at_peak(kept),
+        "outputs_placed": trace.outputs_placed}
 
 
 def _placed_cache(cfg, batch: int, max_seq: int, mesh) -> dict:

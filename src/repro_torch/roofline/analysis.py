@@ -107,10 +107,12 @@ class ShardedTrace(TorchDispatchMode):
         # handle -> [bytes, tensors, {key: storage}]
         self._held: dict = {}
         # Handles of the outputs that replace donated arguments (the dry
-        # run's ``_sharded_run`` sets them when the step returns).
+        # run's ``_sharded_run`` sets them when the step returns), and the
+        # leaves of those outputs it moved to their arguments' placements.
         self.replacing: set = set()
+        self.outputs_placed: list = []
 
-    def _count(self, o, name: str, holds=None) -> None:
+    def _count(self, o, name: str, holds=None, fresh: bool = True) -> None:
         """Count ``o``, a fresh output of op ``name``, with the storage it
         shares with a counted tensor (``holds``, the tensor it wraps).  A
         handle keeps the storages of its keys until it is freed, so that no
@@ -120,12 +122,22 @@ class ShardedTrace(TorchDispatchMode):
         outlived) joined that handle and went uncounted, and a cell's
         footprint moved with the process's allocation order
         (qwen2-moe-a2.7b x train_4k x 2 x 16 x 16: 3.066e11 to 3.398e11 B
-        in three runs of one tree, ``PERF.md`` §6)."""
+        in three runs of one tree, ``PERF.md`` §6).
+
+        An output that aliases an input (not ``fresh``: a view, a
+        ``detach``) joins the handle of a counted storage it holds, and
+        counts nothing of its own: a view that keeps no reference to its
+        base (one made below autograd's view tracking, or the ``detach``
+        through which autograd saves a DTensor output for the backward)
+        holds the storage after every tensor counted with it is gone, and
+        the storage was counted as freed under it (ROADMAP C.21)."""
         found = dict(_storage(t) for t in (o, holds) if t is not None)
         found.pop(None, None)
         keys = set(found)
         handle = next((self._handle[k] for k in keys if k in self._handle),
                       None)
+        if handle is None and not fresh:
+            return
         if handle is None:
             n = _nbytes(o)
             handle = len(self.log)
@@ -219,10 +231,12 @@ class ShardedTrace(TorchDispatchMode):
             self.stats.add(_KINDS[name], _nbytes(out))
         fresh = [r.alias_info is None for r in func._schema.returns]
         outs = out if isinstance(out, (list, tuple)) else (out,)
+        given = {id(a) for a in args if isinstance(a, torch.Tensor)}
         for o, new in zip(outs, fresh):
-            if new and isinstance(o, torch.Tensor) and \
+            if isinstance(o, torch.Tensor) and id(o) not in given and \
                     not isinstance(o, FakeTensor):
-                self._count(o, name, args[0] if name in _WRAPS else None)
+                self._count(o, name, args[0] if name in _WRAPS else None,
+                            fresh=new)
         self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
         return out
 

@@ -105,24 +105,28 @@ def _write_rows(out, start: int, part) -> None:
 
 
 def _gathered(g, p):
-    """The gradient ``g`` whole on each mesh dim that splits it where its
-    parameter ``p`` is replicated (an all-gather), its other mesh dims as
-    they are; ``g`` itself where it has none such, or is a plain tensor.
-    A MoE expert weight's gradient arrives scattered over the data axes
-    (``sharding.grad_split_as``, ROADMAP C.19), its parameter and moments
-    whole there: each slice of rows is gathered before its update, one
-    slice's bytes at a time, so that the update's operations and the new
-    leaves' placements are those of a gradient reduced whole.  Updating
-    each device's part and gathering the new rows would move the
-    parameter's and both moments' bytes, not the gradient's: three times
-    as many with fp32 moments."""
-    from torch.distributed.tensor import DTensor, Shard
-    if not (isinstance(g, DTensor) and isinstance(p, DTensor)):
+    """The gradient ``g`` placed as its parameter ``p``: gathered on each
+    mesh dim that splits it where ``p`` is whole, summed on each where it
+    is pending a sum (an all-reduce, or a reduce-scatter where ``p`` is
+    split there, as the reference's gradient psum), cut to ``p``'s split
+    where it is whole (no bytes moved); ``g`` itself where it is placed so
+    already, or is a plain tensor.  The update's operations are pointwise,
+    so the new parameter and both moments then come out placed as ``p``,
+    ``m`` and ``v`` are: their specs, as the reference's ``out_shardings``
+    pin them (ROADMAP C.20).  Placed by DTensor's rules instead, a new leaf
+    kept the gradient's split (a whole-table embedding split on its hidden
+    dim, deepseek-v3-671b's ``wq_b`` split over the data axis) or its
+    pending sum (``wq_b`` over the pod axis, all-reduced at each use), and
+    would be gathered after the update: the parameter's and both moments'
+    bytes (8-12 B an element), where this moves the gradient's (4 B).  A
+    MoE expert weight's gradient arrives scattered over the data axes
+    (``sharding.grad_split_as``, C.19) and is gathered a slice of rows at
+    a time, one slice's bytes at a time."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(g, DTensor) and isinstance(p, DTensor)) or \
+            tuple(g.placements) == tuple(p.placements):
         return g
-    want = [q if isinstance(gp, Shard) and q.is_replicate() else gp
-            for gp, q in zip(g.placements, p.placements)]
-    return g if want == list(g.placements) else \
-        g.redistribute(g.device_mesh, want)
+    return g.redistribute(g.device_mesh, p.placements)
 
 
 @torch.no_grad()
@@ -132,9 +136,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     each slice written into the new leaf, m and v: the same operations on
     each element as on the whole leaf, so the same bits, without fp32
     temporaries the size of the whole leaf (a stacked expert leaf is
-    (layers, experts, d, ff)).  A sliced leaf's gradient split where its
-    parameter is whole is gathered a slice at a time (``_gathered``); a
-    leaf updated whole takes the placements DTensor's rules give."""
+    (layers, experts, d, ff)).  A DTensor gradient is placed as its
+    parameter before the update, a sliced leaf's a slice at a time
+    (``_gathered``), so that the new leaves come out placed as the old."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
@@ -158,7 +162,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
         n = p.shape[0] if p.dim() else 0
         rows = _rows_per_slice(p, g, m, v)
         if rows >= n:
-            return upd(p, g, m, v)
+            return upd(p, _gathered(g, p), m, v)
         out = None
         for a in range(0, n, rows):
             b = min(a + rows, n)

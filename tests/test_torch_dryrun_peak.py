@@ -106,7 +106,7 @@ def test_trace_replays_its_own_peak(mesh):
     x = _dt(mesh, (8, 6))
     trace, _, _ = dryrun._sharded_run(
         lambda a: (a.redistribute(mesh, [Replicate(), Replicate()]) * 2,),
-        [x], (0,))
+        [x], {0: 0})
     assert trace.peak_without(set()) == trace.peak_live_bytes
     # The gathered (8, 6) and the product: 192 + 192, the wrapper nothing.
     assert trace.peak_live_bytes == 384
