@@ -1,0 +1,8 @@
+"""The 95th percentile of the window's ``multi_get`` call times (harness
+spans on the host clock), in ms."""
+from tidebench.measures import p95
+
+
+def read(run, cell):
+    x = p95(run["spans"].get("multi_get", []))
+    return None if x is None else x * 1e3
